@@ -6,12 +6,14 @@
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
-1. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+1. Build the five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together); print the build seconds and the
    card's name and power limit.
 2. Kernel parity: each kernel against its plain PyTorch version on the
    card, over every form, shapes that are not multiples of any tile,
-   masked rows and ``k = w``.
+   masked rows and ``k = w``; the scan kernel over every form x {int8,
+   fp16, int4, binary}, ragged d (13, 100, 3), w = 1, a ``slot_valid``
+   mask, and a repeat run that must be bit-identical.
 3. The main path at a real size: ``dense_embed`` (a GloVe-100-sized
    surrogate), n = 1,000,000, d = 100, built with gl = 256, euclidean,
    ``method="pam"``; 1,000 held-out queries through
@@ -19,10 +21,20 @@ result line):
    the card; the card's search held against the port's CPU search on the
    same index for 256 queries. Launch counts are zeroed just before and
    read just after; every kernel must have launched.
+   Then the storage path on the same index: an int8 store (block 256,
+   exact payload in a memmapped file), ``release_dense_payload()``, and
+   ``idx.plan(Query(k=10))``, which must resolve to ``two_stage``; the
+   1,000 queries through it with launch counts zeroed just before and
+   read just after (scan and rank must launch), recall@10 held to the beam
+   recall minus 0.01, the ∞ rerank width held bit-equal to the beam
+   result, the card held against the port's CPU two-stage on 256 queries;
+   payload bytes per vector; fp16, int4 and binary stores through
+   ``search_two_stage``; a profile of one two-stage call.
 4. Each kernel timed with CUDA events at the main path's shapes, beside
    its plain version, one PyTorch library call where one computes the same
    function, and its bound (bytes over 3.35 TB/s or fp32 operations over
-   67 TFLOP/s, the H100 SXM's published peaks).
+   67 TFLOP/s, the H100 SXM's published peaks); the scan kernel at the
+   storage path's shapes in each of its four code formats.
 5. Recall against the record: dense_embed n = 7,800, gl = 256, euclidean,
    beam 32 must reach recall@10 >= 0.85.
 6. The quickstart on the card: euclidean, manhattan, chebyshev and cosine
@@ -41,10 +53,12 @@ The second-to-last line is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -68,7 +82,15 @@ KERNELS = {
     "knn": ("src/repro_torch/csrc/knn.cu", "src/repro/kernels/topk.py:132"),
     "swap_deltas": ("src/repro_torch/csrc/swap.cu",
                     "src/repro/kernels/kmedoids.py:113"),
+    "scan": ("src/repro_torch/csrc/scan.cu",
+             "src/repro/kernels/quantized.py:153"),
 }
+BEAM_PATH_KERNELS = ("pairwise", "rank", "knn", "swap_deltas")  # phase 3
+STORE_PATH_KERNELS = ("scan", "rank")  # the two-stage call
+STORE_BLOCK = 256  # bench_store.py's full-run block size
+RERANK_WIDTH = 128  # Query's default rerank_width
+SCAN_FORMATS = {"int8": "dense", "fp16": "dense", "int4": "int4",
+                "binary": "binary"}
 
 
 class CheckFailed(RuntimeError):
@@ -237,6 +259,8 @@ def phase_parity() -> dict:
             errs["knn"] = max(errs["knn"], topk_agree(
                 kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu()))
 
+    errs["scan"] = parity_scan(rng)
+
     for G, g, k in [(3, 50, 7), (2, 256, 128), (1, 33, 1), (5, 100, 50)]:
         D = _cuda(np.abs(rng.normal(size=(G, g, g))).astype(np.float32))
         d1 = _cuda(np.abs(rng.normal(size=(G, g))).astype(np.float32))
@@ -253,6 +277,59 @@ def phase_parity() -> dict:
     log(f"[parity] all kernels agree with their plain versions: "
         f"{json.dumps(errs)}")
     return errs
+
+
+def scan_rows(Q, codes, scales, block, idx, form, fmt):
+    """The plain distance of every candidate ``idx [b, w]`` of a code
+    table (what the scan kernel scores), for re-checking its picks."""
+    from repro_torch.kernels import ref
+
+    return ref.rowwise_ref(
+        Q, ref.dequantize_rows(codes, scales, block, idx, fmt, Q.shape[1]),
+        form)
+
+
+def parity_scan(rng) -> float:
+    """The scan kernel against its plain version: every form x code format,
+    ragged shapes, an all-masked row, a slot_valid mask, k = w, w = 1, and
+    a repeat run that must be bit-identical. Returns the max error."""
+    import torch
+    from repro_torch.kernels import quantized, ref
+    from repro_torch.store import quantize
+
+    err = 0.0
+    for backend, fmt in SCAN_FORMATS.items():
+        for b, w, d, k, n, block in [(5, 300, 37, 10, 500, 64),
+                                     (3, 17, 13, 17, 40, 8),
+                                     (4, 130, 100, 7, 1000, 256),
+                                     (9, 1, 3, 1, 5, 2)]:
+            codes, scales = quantize(
+                _cuda(rng.normal(size=(n, d)).astype(np.float32)), backend,
+                block)
+            Q = _cuda(rng.normal(size=(b, d)).astype(np.float32))
+            idx = _cuda(rng.integers(0, n, size=(b, w)).astype(np.int32))
+            ok = _cuda(rng.random((b, w)) > 0.3)
+            ok[0] = False  # an all-masked row
+            if d == 13:  # tombstoned table rows, folded as ops does
+                live = _cuda(rng.random(n) > 0.3)
+                ok = ref.fold_slot_valid(idx, ok, live)
+            for form in ref.FORMS:
+                kd, ks = quantized.scan_cuda(Q, codes, scales, block, idx,
+                                             ok, k, form, fmt)
+                rd, rs = ref.scan_gathered_ref(Q, codes, scales, block, idx,
+                                               ok, k, form, fmt)
+                again = torch.gather(
+                    scan_rows(Q, codes, scales, block, idx, form, fmt), 1,
+                    ks.long())
+                require(bool(((ks >= 0) & (ks < w)).all()),
+                        "scan slots outside [0, w)")
+                err = max(err, topk_agree(kd.cpu(), ks.cpu(), rd.cpu(),
+                                          rs.cpu(), again.cpu()))
+                kd2, ks2 = quantized.scan_cuda(Q, codes, scales, block, idx,
+                                               ok, k, form, fmt)
+                require(bool(torch.equal(kd, kd2) and torch.equal(ks, ks2)),
+                        f"scan {form}/{backend} differs run to run")
+    return err
 
 
 def phase_main_path(data: np.ndarray, test: np.ndarray) -> dict:
@@ -301,8 +378,9 @@ def phase_main_path(data: np.ndarray, test: np.ndarray) -> dict:
         f"({len(test) / search_s:.1f} queries/s, first call), "
         f"recall@10 {rec:.4f}; exact_knn {exact_s:.4f} s")
     log(f"[main] kernel launches on the main path: {json.dumps(counts)}")
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} never launched on the main path")
+    for name in BEAM_PATH_KERNELS:
+        require(counts[name] > 0,
+                f"kernel {name} never launched on the main path")
     for beam in (64, 128, 256):
         wide = idx.plan(Query(k=10, beam=beam))(Qc)
         log(f"[main] beam {beam}: recall@10 "
@@ -317,7 +395,7 @@ def phase_main_path(data: np.ndarray, test: np.ndarray) -> dict:
     require(np.array_equal(res.ids.cpu().numpy(), res2.ids.cpu().numpy()),
             "the search is not repeatable")
     return dict(idx=idx, res=res, counts=counts, build_s=build_s,
-                search_s=search_s, recall=rec, Qc=Qc)
+                search_s=search_s, recall=rec, Qc=Qc, gt=gt.cpu().numpy())
 
 
 def _device_us(evt) -> float:
@@ -494,6 +572,171 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
     return rows
 
 
+def phase_store(main: dict, workdir: str) -> dict:
+    """The storage path on the main path's 1M index: int8 store, release,
+    the default plan (two_stage), its checks and the other code formats.
+    Must run after every phase that reads the dense leaf payload."""
+    import torch
+    from repro_torch.core.msa import PDASCIndexData, PDASCLevel
+    from repro_torch.kernels import ops
+    from repro_torch.query import Query
+    from repro_torch.store import LeafStore, search_two_stage
+
+    idx, Qc, gt = main["idx"], main["Qc"], main["gt"]
+    leaf = idx.data.levels[0]
+    n0 = leaf.points.shape[0]
+
+    # fp16, int4 and binary on the same leaf points, dense payload kept
+    others = {}
+    for backend in ("fp16", "int4", "binary"):
+        st = LeafStore.create(leaf.points, backend, block=STORE_BLOCK)
+        res = search_two_stage(
+            idx.data, st, Qc, dist=idx.distance, k=10, r=idx.default_radius,
+            beam=32, max_children=idx.max_children)
+        torch.cuda.synchronize()
+        rec = recall(res.ids.cpu().numpy(), gt)
+        bpv = st.resident_bytes / n0
+        log(f"[store] {backend}: recall@10 {rec:.4f}, payload "
+            f"{bpv:.3f} bytes/vector (dense fp32 400)")
+        others[backend] = dict(recall=rec, bytes_per_vector=bpv,
+                               codes=st.codes, scales=st.scales)
+        del st, res
+
+    t0 = time.perf_counter()
+    idx.attach_store("int8", block=STORE_BLOCK,
+                     path=os.path.join(workdir, "payload.f32"))
+    idx.release_dense_payload()
+    torch.cuda.synchronize()
+    log(f"[store] attach_store('int8', block={STORE_BLOCK}, memmap) + "
+        f"release_dense_payload: {time.perf_counter() - t0:.3f} s")
+    plan = idx.plan(Query(k=10))
+    log(f"[store] plan: {plan.explain()}")
+    require(plan.pipeline == "two_stage" and "scan_quantized" in plan.explain(),
+            "the default plan of a released index is not two_stage")
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = plan(Qc)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res2 = plan(Qc)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(torch.equal(res.ids, res2.ids), "two-stage is not repeatable")
+    log(f"[store] kernel launches on the two-stage path (2 calls): "
+        f"{json.dumps(counts)}")
+    for name in STORE_PATH_KERNELS:
+        require(counts[name] > 0, f"kernel {name} never launched on the "
+                f"two-stage path")
+
+    rec = recall(res.ids.cpu().numpy(), gt)
+    mem = idx.memory_bytes()
+    cache = idx.store.exact.cache.stats
+    log(f"[store] {len(Qc)} queries, two_stage int8, beam 32, R="
+        f"{RERANK_WIDTH}: first call {first_s:.4f} s "
+        f"({len(Qc) / first_s:.1f} queries/s), second {second_s:.4f} s "
+        f"({len(Qc) / second_s:.1f} queries/s)")
+    log(f"[store] recall@10 {rec:.4f} (beam on the same index "
+        f"{main['recall']:.4f}); payload {mem['payload_bytes_per_vector']} "
+        f"bytes/vector (dense fp32 400); memory_bytes {json.dumps(mem)}")
+    log(f"[store] granule cache: {json.dumps(cache)}")
+    require(rec >= main["recall"] - 0.01,
+            f"two-stage recall {rec:.4f} < beam {main['recall']:.4f} - 0.01")
+
+    inf = idx.plan(Query(k=10, rerank_width=None))(Qc)
+    for a, b in zip(inf, main["res"]):
+        require(torch.equal(a, b), "∞ rerank width differs from beam")
+    log("[store] rerank_width=None (∞) == the beam result, bit for bit")
+
+    cpu_data = PDASCIndexData(
+        levels=tuple(PDASCLevel(*(t.cpu() for t in lv))
+                     for lv in idx.data.levels),
+        leaf_ids=idx.data.leaf_ids.cpu())
+    cpu_store = dataclasses.replace(idx.store, codes=idx.store.codes.cpu(),
+                                    scales=idx.store.scales.cpu())
+    cpu = dataclasses.replace(idx, data=cpu_data, store=cpu_store,
+                              device=torch.device("cpu"), _plan_cache=None)
+    t0 = time.perf_counter()
+    want = cpu.plan(Query(k=10))(Qc[:N_CPU_CHECK].cpu())
+    gd = res.dists[:N_CPU_CHECK].cpu().numpy()
+    topk_agree(gd, res.ids[:N_CPU_CHECK].cpu().numpy(), want.dists.numpy(),
+               want.ids.numpy(), gd)
+    log(f"[store] card two-stage == CPU two-stage on {N_CPU_CHECK} queries "
+        f"(CPU took {time.perf_counter() - t0:.1f} s)")
+
+    prof = profile_breakdown(f"two-stage {len(Qc)} queries, int8, R="
+                             f"{RERANK_WIDTH}", lambda: plan(Qc))
+    if idx.store.exact._pool is not None:
+        idx.store.exact._pool.close()
+    return dict(counts=counts, recall=rec, first_s=first_s,
+                second_s=second_s, mem=mem, cache=dict(cache), others=others,
+                profile=prof)
+
+
+def phase_scan_timing(main: dict, store: dict) -> dict:
+    """The scan kernel at the storage path's shapes (its own candidate
+    table, k = R = 128) in each code format: kernel, plain version and
+    bound. Returns the kernels-line row (int8, the path's format, with
+    every format under ``formats``)."""
+    import torch
+    from repro_torch.core import nsa
+    from repro_torch.kernels import quantized, ref
+
+    idx, Qc = main["idx"], main["Qc"]
+    cand_idx, cand_ok = nsa.descend_beam(
+        idx.data, Qc, dist=idx.distance, r=idx.default_radius, beam=32,
+        max_children=idx.max_children)
+    b, w = cand_idx.shape
+    d = Qc.shape[1]
+    n_ok = int(cand_ok.sum())
+    tables = {"int8": (idx.store.codes, idx.store.scales)}
+    tables.update({k: (v["codes"], v["scales"])
+                   for k, v in store["others"].items()})
+    formats = {}
+    for backend, (codes, scales) in tables.items():
+        fmt = SCAN_FORMATS[backend]
+
+        def kernel():
+            return quantized.scan_cuda(Qc, codes, scales, STORE_BLOCK,
+                                       cand_idx, cand_ok, RERANK_WIDTH,
+                                       "l2", fmt)
+
+        def plain():
+            return ref.scan_gathered_ref(Qc, codes, scales, STORE_BLOCK,
+                                         cand_idx, cand_ok, RERANK_WIDTH,
+                                         "l2", fmt)
+
+        kd, ks = kernel()
+        rd, rs = plain()
+        again = torch.gather(scan_rows(Qc, codes, scales, STORE_BLOCK,
+                                       cand_idx, "l2", fmt), 1, ks.long())
+        err = topk_agree(kd.cpu(), ks.cpu(), rd.cpu(), rs.cpu(), again.cpu())
+        row_bytes = codes.shape[1] * codes.element_size()
+        nbytes = (n_ok * row_bytes + 5.0 * b * w + 4.0 * b * d
+                  + 8.0 * b * RERANK_WIDTH)
+        b_ms, b_by = bound(5.0 * n_ok * d, nbytes)
+        formats[backend] = dict(
+            ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=err, bytes_per_row=row_bytes)
+        f = formats[backend]
+        log(f"[time] scan {backend} [{b}, {w}, d={d}, k={RERANK_WIDTH}] "
+            f"({n_ok} unmasked): kernel {f['ms']:.4f} ms, plain "
+            f"{f['plain_ms']:.4f} ms, library None, bound {b_ms:.4f} ms "
+            f"({b_by}), max abs err {err:.3g}")
+    src, rep = KERNELS["scan"]
+    main8 = formats["int8"]
+    return dict(name="scan", route="cuda", source=src, replaces=rep,
+                launches=store["counts"]["scan"],
+                max_abs_err=max(f["max_abs_err"] for f in formats.values()),
+                ms=main8["ms"], plain_ms=main8["plain_ms"],
+                bound_ms=main8["bound_ms"], bound_by=main8["bound_by"],
+                library_ms=None, shape=[b, w, d, RERANK_WIDTH],
+                formats=formats)
+
+
 def phase_recall_record() -> float:
     import torch
     from repro_torch.baselines import exact_knn
@@ -578,6 +821,10 @@ def main() -> int:
     phase_cpu_check(main_run)
     phase_profile(data, main_run)
     rows = phase_timing(data, main_run)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
+        store = phase_store(main_run, work)
+        rows.append(phase_scan_timing(main_run, store))
     phase_recall_record()
     phase_quickstart()
     torch.cuda.synchronize()

@@ -4,12 +4,18 @@
     idx = PDASCIndex.build(data, gl=256, distance="euclidean")  # on CUDA
     res = idx.plan(Query(k=10))(queries)     # the batched beam pipeline
 
+    idx = PDASCIndex.build(data, gl=256, store="int8", store_path=...)
+    idx.release_dense_payload()              # leaf vectors leave the card
+    res = idx.plan(Query(k=10))(queries)     # now the two-stage pipeline
+
 Save and load use ``repro``'s own artifact format (``<path>.npz`` arrays
-named ``level{l}_{field}`` and ``leaf_ids``, plus ``<path>.json`` meta), so
-an index built by ``repro`` loads here and the two packages can be compared
-on the identical index. :meth:`PDASCIndex.from_arrays` carries the state
-across. ``repro``'s payload store, online tiers and remote manifests
-(artifact versions 3-5, or 2 with a store) are not yet ported.
+named ``level{l}_{field}`` and ``leaf_ids``, the store's ``store_codes`` and
+``store_scales``, plus ``<path>.json`` meta), so an index built by
+``repro`` loads here and the two packages can be compared on the identical
+index. :meth:`PDASCIndex.from_arrays` carries the state across. Versions 1,
+2 (with or without a store) and 4 (packed int4 / binary codes) are read;
+``repro``'s online tiers (3) and remote payload manifests (5) are not yet
+ported.
 """
 
 from __future__ import annotations
@@ -29,10 +35,12 @@ from repro_torch.core import msa, nsa, radius as radius_lib
 from repro_torch.kernels import ops as kops
 from repro_torch.query import plan as query_plan
 from repro_torch.query import spec as query_spec
+from repro_torch.store import leaf_store as store_lib
 
-_FORMAT_VERSION = 2  # what repro writes for an index without a store
-_READ_VERSIONS = (1, 2)
-_NOT_PORTED_VERSIONS = (3, 4, 5)  # online tiers, packed codes, remote payload
+_FORMAT_VERSION = 2  # v2: tiered leaf store (payload codes + scales)
+_PACKED_VERSION = 4  # v4: packed payload codes (int4 / binary backends)
+_READ_VERSIONS = (1, 2, 4)
+_NOT_PORTED_VERSIONS = (3, 5)  # online tiers, remote payload
 
 
 def _validate_points(x, dist: dist_lib.Distance, *, what: str) -> np.ndarray:
@@ -65,7 +73,11 @@ class PDASCIndex:
     default_radius: float
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cpu"))
+    # Payload tier. None = leaf vectors stay a dense fp32 device array
+    # inside ``data.levels[0]``.
+    store: Optional[store_lib.LeafStore] = None
     epoch: int = 0
+    _payload_released: bool = dataclasses.field(default=False, repr=False)
     # plan cache: (Query, capability fingerprint) -> SearchPlan
     _plan_cache: Optional[dict] = dataclasses.field(default=None, repr=False)
 
@@ -87,11 +99,17 @@ class PDASCIndex:
         group_chunk: int = 8,
         swap_tol: float = 1e-3,
         shuffle: bool = True,
+        store: Optional[str] = None,
+        store_block: int = 1024,
+        store_path: Optional[str] = None,
         device="cuda",
     ) -> "PDASCIndex":
         """Build the index on ``device`` (CUDA unless ``device="cpu"``).
         ``generator`` (a CPU ``torch.Generator``) drives the shuffle and the
-        radius sample; omitted, each draws from seed 0."""
+        radius sample; omitted, each draws from seed 0. ``store`` ("int8",
+        "fp16", "int4", "binary" or "fp32") also attaches the payload store
+        (:meth:`attach_store`); ``store_path`` puts its exact fp32 payload
+        on disk."""
         dev = resolve_device(device)
         dist = dist_lib.get(distance)
         dataset = _validate_points(dataset, dist, what="build")
@@ -106,19 +124,25 @@ class PDASCIndex:
             torch.from_numpy(dataset).to(dev), dist, quantile=radius_quantile,
             generator=generator,
         )
-        return cls(data=data, stats=stats, distance=dist, gl=gl,
-                   n_prototypes=k_protos, max_children=msa.max_children(data),
-                   default_radius=default_r, device=dev)
+        idx = cls(data=data, stats=stats, distance=dist, gl=gl,
+                  n_prototypes=k_protos, max_children=msa.max_children(data),
+                  default_radius=default_r, device=dev)
+        if store is not None:
+            idx.attach_store(store, block=store_block, path=store_path)
+        return idx
 
     @classmethod
     def from_arrays(cls, arrays: dict, meta: dict, device="cuda"
                     ) -> "PDASCIndex":
         """An index from ``repro``'s saved arrays (``level{l}_{field}``,
-        ``leaf_ids``) and JSON meta, placed on ``device``."""
-        if meta.get("store") is not None or meta.get("mutable") is not None:
+        ``leaf_ids``, and ``store_codes`` / ``store_scales`` with a store)
+        and JSON meta, placed on ``device``. A store's exact payload is the
+        saved ``level0_points``, kept as a host array; the dense leaf array
+        is resident again, as after ``repro``'s load."""
+        if meta.get("mutable") is not None:
             raise NotImplementedError(
-                "payload stores and online tiers are not yet ported to "
-                "repro_torch; save the index without them")
+                "online tiers are not yet ported to repro_torch; save the "
+                "index without them")
         dev = resolve_device(device)
 
         def tensor(a):
@@ -146,12 +170,61 @@ class PDASCIndex:
         stats = msa.BuildStats(level_sizes=tuple(meta["level_sizes"]),
                                level_td=tuple(meta["level_td"]),
                                n_levels=meta["n_levels"])
+        store = None
+        store_meta = meta.get("store")
+        if store_meta is not None:
+            exact = store_lib.ExactSource(
+                np.asarray(arrays["level0_points"], np.float32),
+                store_meta["block"])
+            codes = scales = None
+            if store_meta["backend"] != "fp32":
+                codes = tensor(arrays["store_codes"])
+                scales = tensor(arrays["store_scales"]).float()
+            store = store_lib.LeafStore(
+                backend=store_meta["backend"], block=store_meta["block"],
+                codes=codes, scales=scales, exact=exact)
         return cls(data=data, stats=stats,
                    distance=dist_lib.get(meta["distance"]), gl=meta["gl"],
                    n_prototypes=meta["n_prototypes"],
                    max_children=tuple(meta["max_children"]),
                    default_radius=meta["default_radius"], device=dev,
-                   epoch=int(meta.get("epoch", 0)))
+                   store=store, epoch=int(meta.get("epoch", 0)))
+
+    # -- payload tier ----------------------------------------------------------
+
+    def attach_store(self, backend: str = "int8", *, block: int = 1024,
+                     path: Optional[str] = None, cache_granules: int = 256
+                     ) -> store_lib.LeafStore:
+        """Create the payload tier from the leaf vectors (index slot
+        layout). The codes are made on the index's device and stay there;
+        ``path`` backs the exact fp32 payload with an on-disk memmap read in
+        ``block``-row granules, None keeps a host copy. Returns the store
+        (also ``self.store``)."""
+        if self._payload_released:
+            raise ValueError(
+                "leaf payload already released; rebuild or load the index "
+                "before attaching a new store")
+        self.store = store_lib.LeafStore.create(
+            self.data.levels[0].points, backend, block=block, path=path,
+            cache_granules=cache_granules, device=self.device)
+        return self.store
+
+    def release_dense_payload(self) -> None:
+        """Drop the device-resident fp32 leaf vectors. Needs a quantised
+        store; afterwards only ``execution="two_stage"`` can serve (and
+        ``"auto"`` resolves to it). The leaf level keeps its row count as a
+        ``[n_0, 0]`` placeholder, and its bookkeeping arrays."""
+        if self.store is None or self.store.backend == "fp32":
+            raise ValueError(
+                "release_dense_payload needs a quantised store "
+                "(attach_store('int8'|'fp16'|'int4'|'binary') first)")
+        if self._payload_released:
+            return
+        leaf = self.data.levels[0]
+        placeholder = leaf.points.new_zeros((leaf.points.shape[0], 0))
+        self.data = self.data._replace(
+            levels=(leaf._replace(points=placeholder),) + self.data.levels[1:])
+        self._payload_released = True
 
     # -- search ---------------------------------------------------------------
 
@@ -184,6 +257,8 @@ class PDASCIndex:
     # -- stats ----------------------------------------------------------------
 
     def _dim(self) -> int:
+        if self.store is not None:
+            return self.store.d
         return self.data.levels[-1].points.shape[1]
 
     @property
@@ -193,6 +268,44 @@ class PDASCIndex:
     @property
     def n_points(self) -> int:
         return int(self.data.levels[0].valid.sum())
+
+    def memory_bytes(self) -> dict:
+        """Per-tier memory accounting.
+
+        ``navigation``: the prototype levels 1..L plus the leaf bookkeeping
+        arrays (valid / parent / child / sq_norm / leaf_ids), always on the
+        device. ``payload``: the leaf vectors' device bytes: the dense fp32
+        array, plus the quantised codes + scales once a store is attached
+        (the dense copy goes with :meth:`release_dense_payload`).
+        ``out_of_core``: exact fp32 payload bytes on the host or on disk (0
+        without a quantised store). ``host_cache``: decoded granules held
+        by the LRU of an on-disk payload (a host array's cache holds views
+        of the already-counted array)."""
+        nav = 0
+        for lv in self.data.levels[1:]:
+            nav += sum(getattr(lv, f).nbytes for f in lv._fields)
+        leaf = self.data.levels[0]
+        nav += sum(getattr(leaf, f).nbytes for f in leaf._fields
+                   if f != "points")
+        nav += self.data.leaf_ids.nbytes
+        payload = 0 if self._payload_released else int(leaf.points.nbytes)
+        out_of_core = host_cache = 0
+        if self.store is not None and self.store.backend != "fp32":
+            payload += self.store.resident_bytes
+            out_of_core = self.store.out_of_core_bytes
+            if self.store.exact.on_disk:
+                host_cache = self.store.exact.cache_resident_bytes
+        n = max(self.n_points, 1)
+        total = nav + payload + host_cache
+        return dict(
+            navigation=int(nav),
+            payload=int(payload),
+            out_of_core=int(out_of_core),
+            host_cache=int(host_cache),
+            total_resident=int(total),
+            payload_bytes_per_vector=round(payload / n, 2),
+            total_bytes_per_vector=round(total / n, 2),
+        )
 
     def describe(self) -> str:
         lines = [
@@ -204,14 +317,25 @@ class PDASCIndex:
                                            self.stats.level_td)):
             slots = self.data.levels[l].points.shape[0]
             lines.append(f"  level {l}: {size} valid / {slots} slots, TD={td:.4g}")
+        if self.store is not None:
+            where = "on disk" if self.store.exact.on_disk else "in host memory"
+            lines.append(
+                f"  store: {self.store.backend}, block {self.store.block}, "
+                f"exact payload {where}"
+                + (", dense payload released" if self._payload_released
+                   else ""))
         return "\n".join(lines)
 
     # -- persistence ----------------------------------------------------------
 
     def save(self, path: str) -> None:
-        """Atomic save in ``repro``'s format (version 2 without a store):
-        ``<path>.npz`` arrays + ``<path>.json`` meta. Distances persist by
-        name, so the distance must be the registry's entry."""
+        """Atomic save in ``repro``'s format: ``<path>.npz`` arrays +
+        ``<path>.json`` meta. Version 2, or 4 for packed int4 / binary
+        codes. A store saves its codes and scales, and the exact fp32
+        payload is always saved as ``level0_points`` (read back from the
+        out-of-core source if the dense copy was released), so the artifact
+        reloads self-contained. Distances persist by name, so the distance
+        must be the registry's entry."""
         try:
             registered = dist_lib.get(self.distance.name)
         except KeyError:
@@ -227,8 +351,20 @@ class PDASCIndex:
         for l, lv in enumerate(self.data.levels):
             for field in lv._fields:
                 arrays[f"level{l}_{field}"] = getattr(lv, field).cpu().numpy()
+        store_meta = None
+        version = _FORMAT_VERSION
+        if self.store is not None:
+            if self._payload_released:
+                arrays["level0_points"] = self.store.exact.read_all()
+            store_meta = dict(backend=self.store.backend,
+                              block=self.store.block)
+            if self.store.backend != "fp32":
+                arrays["store_codes"] = self.store.codes.cpu().numpy()
+                arrays["store_scales"] = self.store.scales.cpu().numpy()
+            if self.store.backend in ("int4", "binary"):
+                version = _PACKED_VERSION  # dc != d: unreadable before v4
         meta = dict(
-            version=_FORMAT_VERSION,
+            version=version,
             distance=self.distance.name,
             gl=self.gl,
             n_prototypes=self.n_prototypes,
@@ -237,7 +373,7 @@ class PDASCIndex:
             default_radius=self.default_radius,
             level_sizes=list(self.stats.level_sizes),
             level_td=list(self.stats.level_td),
-            store=None,
+            store=store_meta,
             epoch=self.epoch,
             mutable=None,
         )
@@ -256,15 +392,14 @@ class PDASCIndex:
     @classmethod
     def load(cls, path: str, *, device="cuda") -> "PDASCIndex":
         """Load an artifact written by ``repro`` or by :meth:`save`:
-        versions 1 and 2 without a store."""
+        versions 1, 2 and 4."""
         with open(path + ".json") as f:
             meta = json.load(f)
         version = meta.get("version")
-        if version in _NOT_PORTED_VERSIONS or (
-                version == 2 and meta.get("store") is not None):
+        if version in _NOT_PORTED_VERSIONS:
             raise NotImplementedError(
-                f"index format version {version} with a payload store, online "
-                f"tiers or a remote manifest is not yet ported to repro_torch "
+                f"index format version {version} (online tiers or a remote "
+                f"payload manifest) is not yet ported to repro_torch "
                 f"({path + '.json'})"
             )
         if version not in _READ_VERSIONS:

@@ -5,6 +5,7 @@ plain PyTorch versions.
   topk.py     — fused gather+distance+top-k rank (csrc/rank.cu) and
                 brute-force k-NN (csrc/knn.cu)
   kmedoids.py — FasterPAM swap-sweep deltas (csrc/swap.cu)
+  quantized.py — payload-tier scan over quantised codes (csrc/scan.cu)
   ops.py      — dispatch: CUDA kernel for CUDA tensors, ref.py on the CPU
   ref.py      — plain PyTorch versions defining each kernel's contract
   _build.py   — nvcc build and ctypes loading of csrc/*.cu
@@ -20,6 +21,7 @@ from repro_torch.kernels.ops import (
     rank_gathered,
     reset_launch_counts,
     resolve_form,
+    scan_quantized,
     swap_deltas,
 )
 
@@ -33,5 +35,6 @@ __all__ = [
     "rank_gathered",
     "reset_launch_counts",
     "resolve_form",
+    "scan_quantized",
     "swap_deltas",
 ]

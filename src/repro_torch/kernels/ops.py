@@ -9,6 +9,8 @@ evaluation and ranking step:
   rank_gathered(Q, points, sq_norms, cand_idx, cand_ok, distance, k)
                                           -> (dists[b, k], slots[b, k])
   swap_deltas(D, d1, d2, n1, valid, k)    -> [k, g]  (or [G, k, g])
+  scan_quantized(Q, codes, scales, cand_idx, cand_ok, distance, k, block)
+                                          -> (dists[b, k], slots[b, k])
 
 ``distance`` may be a kernel form (``ref.FORMS``), a registry name
 (``repro_torch.core.distances``) or a ``Distance``. Dispatch:
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch.kernels import kmedoids as _kmk
 from repro_torch.kernels import pairwise as _pw
+from repro_torch.kernels import quantized as _qk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import topk as _tk
 
@@ -63,6 +66,7 @@ def launch_counts() -> dict:
         "rank": _tk.rank_launches,
         "knn": _tk.knn_launches,
         "swap_deltas": _kmk.launches,
+        "scan": _qk.launches,
     }
 
 
@@ -71,6 +75,7 @@ def reset_launch_counts() -> None:
     _tk.rank_launches = 0
     _tk.knn_launches = 0
     _kmk.launches = 0
+    _qk.launches = 0
 
 
 def _on_cuda(*tensors) -> bool:
@@ -222,3 +227,47 @@ def swap_deltas(
         out = _kmk.swap_deltas_cuda(*args, k=k)
         return out if batched else out[0]
     return _ref.swap_deltas_ref(D, d1, d2, n1, valid, k)
+
+
+def scan_quantized(
+    Q: Tensor,
+    codes: Tensor,
+    scales: Tensor,
+    cand_idx: Tensor,
+    cand_ok: Tensor,
+    distance="l2",
+    *,
+    k: int,
+    block: int,
+    slot_valid: Optional[Tensor] = None,
+    code_format: str = "dense",
+    config: Optional[KernelConfig] = None,
+) -> tuple[Tensor, Tensor]:
+    """Stage 1 of the two-stage search: rank per-query candidates against
+    the *quantised* payload tier in its native container.
+
+    ``codes``: ``[n, dc]`` leaf payload codes (int8 / fp16 for
+    ``code_format="dense"``, two int4 nibbles per int8 byte for ``"int4"``,
+    eight sign bits per uint8 byte for ``"binary"``); ``scales``: ``[nb]``
+    per-block scales, ``block`` rows per block; ``cand_idx``/``cand_ok``:
+    ``[b, w]`` candidate rows into ``codes`` and their validity (the beam
+    layout). Returns ``(dists[b, k] ascending, slots[b, k])`` into the
+    candidate axis: *approximate* distances, which callers rerank against
+    the exact payload. ``slot_valid`` (``bool[n]``, True = live row) is
+    folded into ``cand_ok`` first. On CUDA the scan kernel reads the code
+    rows and scales in place: no ``[b, w, dc]`` cube is built. ``config``
+    is accepted for ``repro``'s signature; the scan has no knob yet."""
+    cand_ok = _ref.fold_slot_valid(cand_idx, cand_ok, slot_valid)
+    form = resolve_form(distance)
+    if form is None:
+        C = _ref.dequantize_rows(codes, scales, block, cand_idx, code_format,
+                                 Q.shape[-1])
+        return _registry_rank(Q, C, cand_ok, distance, k)
+    if _on_cuda(Q, codes, scales, cand_idx, cand_ok):
+        return _qk.scan_cuda(
+            _f32(Q), codes.contiguous(), _f32(scales), block,
+            cand_idx.to(torch.int32).contiguous(),
+            cand_ok.to(torch.bool).contiguous(), k, form, code_format,
+        )
+    return _ref.scan_gathered_ref(Q, codes, scales, block, cand_idx, cand_ok,
+                                  k, form, fmt=code_format)

@@ -1,0 +1,95 @@
+"""The CUDA payload-tier scan (``csrc/scan.cu``), the counterpart of
+``repro.kernels.quantized.scan_pallas``: stage 1 of the two-stage search.
+
+``scan_cuda`` ranks per-query candidates, given as row indices into the
+store's quantised code table, against the codes in their native container
+(int8, fp16, two int4 nibbles per byte, eight sign bits per byte). It reads
+each candidate's code row and block scale itself, unpacks and dequantises
+in registers, and keeps a streaming top-k. Plain version:
+``ref.scan_gathered_ref``. It returns ascending distances with the lower
+slot first among equal distances, as ``jax.lax.top_k`` does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import CODE_FORMATS, FORMS, packed_width
+
+launches = 0  # launches since the last ops.reset_launch_counts()
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SCAN = {"scan_launch": [_P] * 7 + [_I] * 10 + [_P]}
+
+_SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+_TILE = 128  # candidates per tile in scan.cu
+
+# (code format, container dtype) -> the container code of scan.cu
+_CONTAINERS = {
+    ("dense", torch.int8): 0,
+    ("dense", torch.float16): 1,
+    ("int4", torch.int8): 2,
+    ("binary", torch.uint8): 3,
+}
+
+
+def scan_cuda(
+    Q: torch.Tensor,
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    block: int,
+    cand_idx: torch.Tensor,
+    ok: torch.Tensor,
+    k: int,
+    form: str,
+    fmt: str = "dense",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``Q [b, d]`` fp32, ``codes [n, dc]`` (int8 / fp16 for ``"dense"``,
+    int8 for ``"int4"``, uint8 for ``"binary"``), ``scales [nb]`` fp32 (row
+    ``r`` takes ``scales[r // block]``), ``cand_idx [b, w]`` int32, ``ok
+    [b, w]`` bool, all contiguous on one CUDA device. Returns ``(dists[b, k],
+    slots[b, k] in [0, w))``."""
+    global launches
+    if form not in FORMS:
+        raise ValueError(f"unsupported form {form!r}")
+    if fmt not in CODE_FORMATS:
+        raise ValueError(f"unknown code format {fmt!r}; use {CODE_FORMATS}")
+    container = _CONTAINERS.get((fmt, codes.dtype))
+    if container is None:
+        raise ValueError(f"scan_cuda: {fmt!r} codes cannot be {codes.dtype}")
+    b, d = Q.shape
+    n, dc = codes.shape
+    if dc != packed_width(d, fmt):
+        raise ValueError(f"scan_cuda: {fmt!r} codes of d={d} need width "
+                         f"{packed_width(d, fmt)}, got {dc}")
+    if cand_idx.shape != ok.shape or cand_idx.shape[0] != b:
+        raise ValueError("scan_cuda: shape mismatch")
+    w = cand_idx.shape[1]
+    if not 1 <= k <= w:
+        raise ValueError(f"k={k} must lie in [1, w={w}]")
+    if block < 1 or scales.dim() != 1 or scales.shape[0] < 1:
+        raise ValueError("scan_cuda: needs block >= 1 and scales [nb >= 1]")
+    if 4 * (d + 4 * k + 2 * _TILE) > _SMEM_LIMIT:
+        raise ValueError(f"scan_cuda: k={k} at d={d} exceeds shared memory")
+    if Q.dtype != torch.float32 or scales.dtype != torch.float32 \
+            or cand_idx.dtype != torch.int32 or ok.dtype != torch.bool:
+        raise ValueError("scan_cuda: Q/scales fp32, cand_idx int32, ok bool")
+    for t in (Q, codes, scales, cand_idx, ok):
+        if not (t.is_cuda and t.is_contiguous() and t.device == Q.device):
+            raise ValueError("scan_cuda takes contiguous tensors on one CUDA "
+                             "device")
+    out_d = torch.empty((b, k), device=Q.device, dtype=torch.float32)
+    out_s = torch.empty((b, k), device=Q.device, dtype=torch.int32)
+    lib = _build.load("scan", _SCAN)
+    err = lib.scan_launch(
+        Q.data_ptr(), codes.data_ptr(), scales.data_ptr(), cand_idx.data_ptr(),
+        ok.data_ptr(), out_d.data_ptr(), out_s.data_ptr(),
+        b, n, scales.shape[0], block, d, dc, w, k, FORMS.index(form),
+        container, torch.cuda.current_stream(Q.device).cuda_stream,
+    )
+    _build.check(err, "scan")
+    launches += 1
+    return out_d, out_s

@@ -207,3 +207,107 @@ def rank_gathered_ref(
     rows = torch.clamp(cand_idx.long(), 0, points.shape[0] - 1)
     cc = sq_norm[rows] if (form in NORM_FORMS and sq_norm is not None) else None
     return rank_ref(Q, points[rows], ok, k, form, cc=cc)
+
+
+# -- packed code formats (int4 / binary payload tiers) ----------------------
+
+CODE_FORMATS = ("dense", "int4", "binary")
+
+
+def packed_width(d: int, fmt: str) -> int:
+    """Packed last-axis width of a ``[.., d]`` code row in format ``fmt``."""
+    if fmt == "int4":
+        return -(-d // 2)
+    if fmt == "binary":
+        return -(-d // 8)
+    return d
+
+
+def _pad_last(t: Tensor, width: int) -> Tensor:
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def pack_int4(vals: Tensor) -> Tensor:
+    """Pack int4 codes two per byte along the last axis.
+
+    ``vals``: ``[..., d]`` integer codes in ``[-8, 7]``. Returns
+    ``[..., ceil(d/2)]`` int8: element ``2j`` in the low nibble of byte
+    ``j``, ``2j+1`` in the high nibble (zero-padded when ``d`` is odd)."""
+    v = vals.to(torch.int32)
+    dc = packed_width(v.shape[-1], "int4")
+    pairs = _pad_last(v, 2 * dc).reshape(*v.shape[:-1], dc, 2)
+    packed = ((pairs[..., 1] & 0xF) << 4) | (pairs[..., 0] & 0xF)  # 0..255
+    return ((packed ^ 0x80) - 0x80).to(torch.int8)  # the byte as int8
+
+
+def pack_binary(x: Tensor) -> Tensor:
+    """Pack sign bits eight per byte along the last axis.
+
+    ``x``: ``[..., d]`` values (or bools); bit ``j`` of byte ``i`` is
+    ``x[..., 8i+j] >= 0``. Returns ``[..., ceil(d/8)]`` uint8."""
+    bits = (x if x.dtype == torch.bool else x >= 0).to(torch.int32)
+    dc = packed_width(bits.shape[-1], "binary")
+    groups = _pad_last(bits, 8 * dc).reshape(*bits.shape[:-1], dc, 8)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device=x.device)
+    return (groups * weights).sum(-1).to(torch.uint8)
+
+
+def unpack_codes(codes: Tensor, fmt: str, d: int) -> Tensor:
+    """Unpack packed codes to per-dimension integer codes.
+
+    ``codes``: ``[..., packed_width(d, fmt)]``; returns ``[..., d]`` int32:
+    signed nibbles for ``int4``, ±1 for ``binary``. ``dense`` passes
+    through (int8 / fp16 codes keep their dtype). The byte is taken as
+    ``& 0xFF`` first, whatever the container's signedness, then sign
+    extended without branches: the arithmetic ``csrc/scan.cu`` inlines."""
+    if fmt == "dense":
+        return codes
+    c = codes.to(torch.int32) & 0xFF
+    if fmt == "int4":
+        lo = ((c & 0xF) ^ 0x8) - 0x8
+        hi = ((c >> 4) ^ 0x8) - 0x8
+        full = torch.stack([lo, hi], dim=-1).reshape(*c.shape[:-1], -1)
+        return full[..., :d]
+    if fmt == "binary":
+        shifts = torch.arange(8, dtype=torch.int32, device=c.device)
+        bits = (c[..., None] >> shifts) & 1
+        return (2 * bits.reshape(*c.shape[:-1], -1) - 1)[..., :d]
+    raise ValueError(f"unknown code format {fmt!r}; use {CODE_FORMATS}")
+
+
+def scan_quantized_ref(
+    Q: Tensor, C: Tensor, c_scales: Tensor, ok: Tensor, k: int, form: str,
+    fmt: str = "dense",
+) -> tuple[Tensor, Tensor]:
+    """Stage-1 scan of the two-stage search over gathered quantised codes.
+
+    ``C``: ``[b, w, dc]`` per-query candidate codes (int8 or fp16 for
+    ``"dense"``, packed int4 / binary otherwise); ``c_scales``: ``[b, w]``
+    per-row scales. Candidates are unpacked, dequantised (``code *
+    scale``) and ranked like :func:`rank_ref`, with the squared norms taken
+    from the dequantised rows; masked slots rank as ``BIG``. Returns
+    ``(dists[b, k] ascending, slots[b, k])``."""
+    Cf = unpack_codes(C, fmt, Q.shape[-1]).float() \
+        * c_scales.float()[..., None]
+    return rank_ref(Q, Cf, ok, k, form)
+
+
+def dequantize_rows(codes: Tensor, scales: Tensor, block: int, rows: Tensor,
+                    fmt: str, d: int) -> Tensor:
+    """Rows ``rows [...]`` of a code table ``codes [n, dc]``, unpacked and
+    dequantised with ``scales[row // block]``: ``[..., d]`` float32."""
+    rows = torch.clamp(rows.long(), 0, codes.shape[0] - 1)
+    srows = scales[torch.clamp(rows // block, 0, scales.shape[0] - 1)]
+    return unpack_codes(codes[rows], fmt, d).float() * srows.float()[..., None]
+
+
+def scan_gathered_ref(
+    Q: Tensor, codes: Tensor, scales: Tensor, block: int, cand_idx: Tensor,
+    ok: Tensor, k: int, form: str, fmt: str = "dense",
+) -> tuple[Tensor, Tensor]:
+    """The scan kernel's function: candidates given as rows ``cand_idx
+    [b, w]`` of a shared code table ``codes [n, dc]`` whose rows take
+    ``scales[row // block]``. Gathers and dequantises the ``[b, w, d]``
+    candidates (the kernel reads the codes in place) and ranks them."""
+    C = dequantize_rows(codes, scales, block, cand_idx, fmt, Q.shape[-1])
+    return rank_ref(Q, C, ok, k, form)

@@ -6,9 +6,8 @@ knobs (``beam`` schedule, ``leaf_radius_filter``) and at most a preference
 for the execution pipeline (``execution``, default ``"auto"``). The planner
 (``repro_torch.query.plan``) decides the rest from the index at plan time.
 Queries are frozen and hashable: a ``Query`` keys the plan cache.
-
-``repro``'s two-stage knobs (``rerank_width``, ``exact_rerank``) come with
-the storage tier in a later slice of the port.
+``rerank_width`` and ``exact_rerank`` are the two-stage knobs, read only by
+the ``two_stage`` pipeline.
 """
 
 from __future__ import annotations
@@ -23,8 +22,9 @@ from repro_torch.core import distances as dist_lib
 from repro_torch.kernels import ops as kops
 
 # Execution preferences a Query may name (the same names as repro's).
-# "auto" resolves to the batched beam pipeline; "two_stage", "beam_vmap"
-# and "sharded" are not yet ported and raise when the plan is compiled.
+# "auto" resolves to "beam", or to "two_stage" once the index has released
+# its dense leaf payload; "beam_vmap" and "sharded" are not yet ported and
+# raise when the plan is compiled.
 EXECUTIONS = ("auto", "dense", "beam", "beam_vmap", "two_stage", "sharded")
 
 Radius = Union[None, float, tuple]
@@ -50,6 +50,11 @@ class Query:
         = top) or None for the index's ``default_radius``.
       execution: pipeline preference, one of :data:`EXECUTIONS`.
       beam: surviving prototypes per level — scalar or per-level schedule.
+      rerank_width: two-stage only — survivors of the quantised scan that
+        advance to the exact rerank (None / <= 0 = ∞, bit-identical to
+        ``beam``).
+      exact_rerank: two-stage only — False skips the exact rerank and ranks
+        on the quantised scan's distances alone.
       leaf_radius_filter: apply the radius at the leaf ranking too.
       with_stats: include the candidate-count reduction.
       kernel: kernel-layer knobs (None = defaults).
@@ -59,6 +64,8 @@ class Query:
     radius: Radius = None
     execution: str = "auto"
     beam: Beam = 32
+    rerank_width: Optional[int] = 128
+    exact_rerank: bool = True
     leaf_radius_filter: bool = False
     with_stats: bool = True
     kernel: Optional[kops.KernelConfig] = None
@@ -75,6 +82,8 @@ class Query:
         object.__setattr__(self, "radius", _freeze_schedule(self.radius))
         object.__setattr__(self, "beam",
                            _freeze_schedule(self.beam, numeric=int))
+        if self.rerank_width is not None:
+            object.__setattr__(self, "rerank_width", int(self.rerank_width))
 
 
 def validate_query_batch(Q, dist: dist_lib.Distance, *,

@@ -234,8 +234,11 @@ def test_plain_versions_count_no_launches():
     ops.pairwise_distance(t(Q), t(P), "l2")
     ops.rank_gathered(t(Q), t(P), None, t(idx), t(ok), "l2", k=3)
     ops.knn(t(Q), t(P), "l2", k=3)
+    codes = torch.from_numpy(P).to(torch.float16)
+    ops.scan_quantized(t(Q), codes, torch.ones(1), t(idx), t(ok), "l2", k=3,
+                       block=P.shape[0])
     assert ops.launch_counts() == dict(pairwise=0, rank=0, knn=0,
-                                       swap_deltas=0)
+                                       swap_deltas=0, scan=0)
 
 
 def test_topk_order_lower_index_first_on_ties():

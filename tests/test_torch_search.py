@@ -183,12 +183,14 @@ def test_save_load_roundtrip_and_unported_formats(tmp_path):
     for a, b in zip(idx.data.levels, back.data.levels):
         assert all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields)
     meta = json.load(open(path + ".json"))
-    for version, store in ((3, None), (4, None), (5, None),
-                           (2, {"backend": "int8", "block": 64})):
-        json.dump(dict(meta, version=version, store=store),
-                  open(path + ".json", "w"))
+    for version in (3, 5):  # online tiers, remote payload manifest
+        json.dump(dict(meta, version=version), open(path + ".json", "w"))
         with pytest.raises(NotImplementedError, match="not yet ported"):
             PDASCIndex.load(path, device="cpu")
+    json.dump(dict(meta, version=2, mutable={"delta_size": 0}),
+              open(path + ".json", "w"))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        PDASCIndex.load(path, device="cpu")
     json.dump(dict(meta, version=99), open(path + ".json", "w"))
     with pytest.raises(ValueError, match="unsupported"):
         PDASCIndex.load(path, device="cpu")
@@ -200,9 +202,11 @@ def test_query_surface():
     assert plan.pipeline == "beam" and idx.plan(Query(k=3)) is plan
     assert "rank_gathered" in plan.explain()
     assert idx.plan(k=3, execution="dense").pipeline == "dense"
-    for execution in ("two_stage", "beam_vmap", "sharded"):
+    for execution in ("beam_vmap", "sharded"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             idx.plan(Query(execution=execution))
+    with pytest.raises(ValueError, match="needs a leaf store"):
+        idx.plan(Query(execution="two_stage"))
     with pytest.raises(ValueError, match="non-finite"):
         plan(np.full((2, 8), np.nan, np.float32))
     with pytest.raises(ValueError, match="does not match"):
