@@ -11,9 +11,13 @@ result line):
    card's name and power limit.
 2. Kernel parity: each kernel against its plain PyTorch version on the
    card, over every form, shapes that are not multiples of any tile,
-   masked rows and ``k = w``; the scan kernel over every form x {int8,
-   fp16, int4, binary}, ragged d (13, 100, 3), w = 1, a ``slot_valid``
-   mask, and a repeat run that must be bit-identical.
+   masked rows and ``k = w``; knn also at d = 3 and 100, q = 1 and 129,
+   k = 1024, on a DB of copied rows (lower ids first among copies) and
+   with repeat calls that must be bit-identical; swap_deltas also at
+   g = 300, k = 1 and with every row of one slot masked; the scan kernel
+   over every form x {int8, fp16, int4, binary}, ragged d (13, 100, 3),
+   w = 1, a ``slot_valid`` mask, and a repeat run that must be
+   bit-identical.
 3. The main path at a real size: ``dense_embed`` (a GloVe-100-sized
    surrogate), n = 1,000,000, d = 100, built with gl = 256, euclidean,
    ``method="pam"``; 1,000 held-out queries through
@@ -32,9 +36,13 @@ result line):
    ``search_two_stage``; a profile of one two-stage call.
 4. Each kernel timed with CUDA events at the main path's shapes, beside
    its plain version, one PyTorch library call where one computes the same
-   function, and its bound (bytes over 3.35 TB/s or fp32 operations over
-   67 TFLOP/s, the H100 SXM's published peaks); the scan kernel at the
-   storage path's shapes in each of its four code formats.
+   function, and its bound: the larger of bytes over 3.35 TB/s and
+   operations over the peak of the fastest route the work can take at its
+   precision (the H100 SXM's published peaks): 67 TFLOP/s fp32 on the CUDA
+   cores, or for the Gram forms of knn and pairwise the lesser time of
+   that and 3xTF32 on the tensor cores (495 TFLOP/s TF32 / 3). knn also
+   in l1 (its CUDA-core route). The scan kernel at the storage path's
+   shapes in each of its four code formats.
 5. Recall against the record: dense_embed n = 7,800, gl = 256, euclidean,
    beam 32 must reach recall@10 >= 0.85.
 6. The quickstart on the card: euclidean, manhattan, chebyshev and cosine
@@ -71,10 +79,21 @@ N_QUERIES = 1000
 GROUP_CHUNK = 1024  # groups per build slab (the result does not depend on it)
 N_CPU_CHECK = 256
 RECALL_FLOOR = 0.85  # repro on the CPU records 0.904 (BENCH_search.json)
-PEAK_FLOPS = 67e12  # H100 SXM fp32 on the CUDA cores
+PEAK_FP32 = 67e12  # H100 SXM fp32 on the CUDA cores
+PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense
+# The Gram forms may take either route: fp32 on the CUDA cores, or 3xTF32
+# (three TF32 products per fp32 product) on the tensor cores.
+PEAK_GRAM = max(PEAK_FP32, PEAK_TF32 / 3)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 BIG = 1e30
 
+KNN_CASES = [  # (q, n, d, k): ragged against every tile, q = 1 and 129
+    (37, 1000, 13, 10), (16, 129, 100, 1), (3, 300, 5, 300), (70, 5000, 64, 32),
+    (20, 1037, 3, 10), (45, 3001, 100, 16), (1, 2000, 100, 10),
+    (129, 1500, 100, 10), (5, 3000, 100, 1024)]
+SWAP_CASES = [  # (G, g, k): g = 300 is ragged against the 64-column tile
+    (3, 50, 7), (2, 256, 128), (1, 33, 1), (5, 100, 50), (2, 300, 64),
+    (3, 300, 1)]
 KERNELS = {
     "pairwise": ("src/repro_torch/csrc/pairwise.cu",
                  "src/repro/kernels/pairwise.py:168"),
@@ -169,8 +188,12 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32
+          ) -> tuple[float, str]:
+    """Least time in ms, and what bounds it: operations over ``peak`` (the
+    operation rate of the fastest route the work can take at its
+    precision) or bytes over the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -249,24 +272,27 @@ def phase_parity() -> dict:
             errs["rank"] = max(errs["rank"], topk_agree(
                 kd.cpu(), ks.cpu(), rd.cpu(), rs.cpu(), again.cpu()))
 
-        for q, n, d, k in [(37, 1000, 13, 10), (16, 129, 100, 1),
-                           (3, 300, 5, 300), (70, 5000, 64, 32)]:
+        for q, n, d, k in KNN_CASES:
             Q = _cuda(rng.normal(size=(q, d)).astype(np.float32))
             DB = _cuda(rng.normal(size=(n, d)).astype(np.float32))
-            kd, ki = topk.knn_cuda(Q, DB, k, form)
-            rd, ri = ref.knn_ref(Q, DB, k, form)
-            again = torch.gather(ref.pairwise_ref(Q, DB, form), 1, ki.long())
-            errs["knn"] = max(errs["knn"], topk_agree(
-                kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu()))
+            errs["knn"] = max(errs["knn"], parity_knn(Q, DB, k, form))
+        # duplicated rows: equal distances come back lower id first
+        src = rng.integers(0, 40, size=777)
+        base = rng.normal(size=(40, 100)).astype(np.float32)
+        Q = _cuda(rng.normal(size=(33, 100)).astype(np.float32))
+        DB = _cuda(base[src])
+        errs["knn"] = max(errs["knn"], parity_knn(Q, DB, 50, form, src))
 
     errs["scan"] = parity_scan(rng)
 
-    for G, g, k in [(3, 50, 7), (2, 256, 128), (1, 33, 1), (5, 100, 50)]:
+    for G, g, k in SWAP_CASES:
         D = _cuda(np.abs(rng.normal(size=(G, g, g))).astype(np.float32))
         d1 = _cuda(np.abs(rng.normal(size=(G, g))).astype(np.float32))
         d2 = d1 + _cuda(np.abs(rng.normal(size=(G, g))).astype(np.float32))
         n1 = _cuda(rng.integers(0, k, size=(G, g)).astype(np.int32))
         valid = _cuda(rng.random((G, g)) > 0.2)
+        if k > 1:  # every row of slot 1 dropped: its T row holds no term
+            valid &= n1 != 1
         out = kmk.swap_deltas_cuda(D, d1, d2, n1, valid, k)
         want = ref.swap_deltas_ref(D, d1, d2, n1, valid, k)
         errs["swap_deltas"] = max(errs["swap_deltas"], values_agree(
@@ -277,6 +303,33 @@ def phase_parity() -> dict:
     log(f"[parity] all kernels agree with their plain versions: "
         f"{json.dumps(errs)}")
     return errs
+
+
+def parity_knn(Q, DB, k, form, src=None) -> float:
+    """The knn kernel against its plain version on one case, a repeat call
+    that must be bit-identical and, where ``src`` says which DB rows are
+    copies of one row (``DB = base[src]``), lower ids first among copies.
+    Returns the max error."""
+    import torch
+    from repro_torch.kernels import ref, topk
+
+    kd, ki = topk.knn_cuda(Q, DB, k, form)
+    rd, ri = ref.knn_ref(Q, DB, k, form)
+    again = torch.gather(ref.pairwise_ref(Q, DB, form), 1, ki.long())
+    err = topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu())
+    kd2, ki2 = topk.knn_cuda(Q, DB, k, form)
+    require(bool(torch.equal(kd, kd2) and torch.equal(ki, ki2)),
+            f"knn {form} {tuple(Q.shape)} x {tuple(DB.shape)} k={k} differs "
+            f"run to run")
+    if src is not None:
+        ids = ki.cpu().numpy()
+        for b in range(ids.shape[0]):
+            got = set(ids[b].tolist())
+            for i in ids[b]:
+                lower = np.nonzero(src[:i] == src[i])[0]
+                require(got.issuperset(lower.tolist()),
+                        f"knn {form}: id {i} returned, a lower copy not")
+    return err
 
 
 def scan_rows(Q, codes, scales, block, idx, form, fmt):
@@ -495,8 +548,9 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
     idx, Qc = main["idx"], main["Qc"]
     rows = []
 
-    def row(name, shape, ms, plain_ms, lib_ms, flops, nbytes, err):
-        b_ms, b_by = bound(flops, nbytes)
+    def row(name, shape, ms, plain_ms, lib_ms, flops, nbytes, err,
+            peak=PEAK_FP32):
+        b_ms, b_by = bound(flops, nbytes, peak)
         src, rep = KERNELS[name]
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=main["counts"][name], max_abs_err=err,
@@ -516,7 +570,7 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
         time_ms(lambda: pw.pairwise_cuda(X, X, "l2")),
         time_ms(lambda: ref.pairwise_ref(X, X, "l2")),
         time_ms(lambda: torch.cdist(X, X)),
-        2.0 * G * g * g * d, 4.0 * (2 * G * g * d + G * g * g), err)
+        2.0 * G * g * g * d, 4.0 * (2 * G * g * d + G * g * g), err, PEAK_GRAM)
 
     # swap_deltas: the first sweep of that slab (pruned BUILD medoids)
     k = g // 2
@@ -563,12 +617,36 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
     err = topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu())
     del rd, ri
     nq, n = Qc.shape[0], DB.shape[0]
+    flops, nbytes = 2.0 * nq * n * d, 4.0 * (nq * d + n * d) + 8.0 * nq * 10
     row("knn", [nq, n, d, 10],
         time_ms(lambda: topk.knn_cuda(Qc, DB, 10, "l2"), iters=5),
         time_ms(lambda: ref.knn_ref(Qc, DB, 10, "l2"), iters=2, warmup=1),
         time_ms(lambda: torch.topk(torch.cdist(Qc, DB), 10, largest=False),
                 iters=2, warmup=1),
-        2.0 * nq * n * d, 4.0 * (nq * d + n * d) + 8.0 * nq * 10, err)
+        flops, nbytes, err, PEAK_GRAM)
+
+    # knn in l1 at the same shape: the VPU route (no product, fp32 cores;
+    # one subtract and one add an element)
+    def plain_l1():
+        return ref.topk_smallest(ref.pairwise_ref_chunked(Qc, DB, "l1", 1024),
+                                 10)
+
+    kd, ki = topk.knn_cuda(Qc, DB, 10, "l1")
+    rd, ri = plain_l1()
+    again = ref.rowwise_ref(Qc, DB[ki.long()], "l1")
+    err = topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu())
+    del rd, ri
+    b_ms, b_by = bound(flops, nbytes)
+    l1 = dict(ms=time_ms(lambda: topk.knn_cuda(Qc, DB, 10, "l1"), iters=3),
+              plain_ms=time_ms(plain_l1, iters=1, warmup=0),
+              library_ms=time_ms(lambda: torch.topk(
+                  torch.cdist(Qc, DB, p=1), 10, largest=False),
+                  iters=1, warmup=1),
+              bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    rows[-1]["l1"] = l1
+    log(f"[time] knn l1 [{nq}, {n}, {d}, 10]: kernel {l1['ms']:.4f} ms, "
+        f"plain {l1['plain_ms']:.4f} ms, library {l1['library_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), max abs err {err:.3g}")
     return rows
 
 

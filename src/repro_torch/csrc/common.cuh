@@ -1,5 +1,6 @@
 // Shared device code of the PDASC CUDA kernels: distance forms, warp
-// reductions, the row-norm kernel and the block-wide top-k merge.
+// reductions, the row-norm kernel, the block-wide top-k merge and the
+// cp.async helpers.
 //
 // Form codes follow repro_torch.kernels.ref.FORMS:
 //   0 sqeuclidean, 1 l2, 2 cosine, 3 dot, 4 l1, 5 chebyshev.
@@ -121,6 +122,32 @@ __device__ void merge_tile(float* sd, int* si, float* nd, int* ni,
 // rank below every real candidate of equal distance (repro's -1 init).
 __device__ __forceinline__ void init_state(float* sd, int* si, int k) {
   for (int i = threadIdx.x; i < k; i += blockDim.x) { sd[i] = BIG; si[i] = i - k; }
+}
+
+// Asynchronous global -> shared copies (sm_80+). With `full` false the
+// source is not read and the destination is zero-filled (ragged edges).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 inline cudaError_t set_smem(const void* kernel, size_t bytes) {

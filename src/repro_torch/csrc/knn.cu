@@ -9,111 +9,621 @@
 // reaches device memory.
 //
 // What bounds it on the H100: operations. On the main path (q = 1000
-// queries, n = 1,000,000, d = 100) it does 2*q*n*d = 2e11 fp32 FLOPs
-// against ~0.4 GB of input, ~500 FLOP per byte: far above the card's fp32
-// ratio (67 TFLOP/s over 3.35 TB/s = 20 FLOP per byte).
+// queries, n = 1,000,000, d = 100) it does 2*q*n*d = 2e11 FLOPs against
+// ~0.4 GB of input, ~500 FLOP per byte. In fp32 on the CUDA cores that is
+// 2.99 ms; the Gram forms take the tensor cores at a precision the ranking
+// can trust (3xTF32, three TF32 products per fp32 product): 1.21 ms.
 //
-// Design: the TPU kernel carries each query tile's top-k state from one
+// Design. The TPU kernel carries each query tile's top-k state from one
 // sequential grid step to the next (topk.py:70-84); CUDA blocks cannot, so
-// the grid is query tiles x DB splits. A block owns 16 queries and one
-// contiguous split of the DB, streams that split in 128-row tiles through
-// shared memory (d in 32-wide slices), computes the 16 x 128 distance tile
-// with 2 x 4 register micro-tiles in fp32, and merges each query's row into
-// its own top-k state in shared memory (merge_tile in common.cuh; a tile
-// with nothing below the k-th distance costs one barrier). A second small
-// kernel merges the per-split lists of each query. Norms for the Gram forms
-// come from the warp-per-row norm kernel, launched first.
+// the grid is query tiles x DB splits (one wave of one block per SM), and
+// a second small kernel merges the per-split lists of each query.
+// - A block holds BQ queries (128 for small k; the wrapper picks 64, 32 or
+//   16 where k's states or d's rows would not fit in shared memory), so the
+//   DB is read from L2 once per 128 queries, not once per 16.
+// - The split's DB rows stream in 128-row tiles, 64 columns of d at a
+//   time, double-buffered through shared memory by cp.async (zero-filled
+//   past d and past the split), so loads overlap the products; d is padded
+//   to the MMA depth with zeros.
+// - Gram forms: wgmma on two warpgroups, each multiplying 64 DB rows of the
+//   tile (A, from registers) by all BQ queries (B, from shared memory).
+//   Q is staged once per block, split there as x = hi + lo, hi = tf32(x),
+//   lo = tf32(x - hi), in core-matrix order; each warp reads its DB
+//   fragment by ldmatrix and splits it in registers. Each product is
+//   lo*Qhi + hi*Qlo + hi*Qhi, accumulated in fp32 (~22 mantissa bits: the
+//   ranking of fp32, which plain TF32's 11 bits are not); the next
+//   fragment is split while the tensor cores run. Norms stay exact fp32
+//   (launch_sqnorm), read once per block (queries) and ahead of each
+//   tile's last products (DB rows).
+// - l1 and chebyshev have no product: the same tiles and ring, with fp32
+//   register micro-tiles of 8 queries x 8 DB rows a thread at BQ = 128
+//   (16-byte shared loads), laid out as an MMA accumulator.
+// - Top-k without a block barrier per candidate: a thread marks, branch
+//   free, its queries whose least value is at or below the query's bound
+//   (its k-th entry, kept in registers and read again after merges); only
+//   those are visited, their values picked by selects, and only values that
+//   beat the k-th go, by a shared atomicAdd, to a 32-slot per-query buffer
+//   in shared memory. One barrier a tile asks whether a buffer reached 2k
+//   entries (k of them bound the k-th) or overflowed; only then (those
+//   queries, listed as they fill and dealt to the warps in turn), and once
+//   at the end of the split, a warp per query merges buffer and state by
+//   rank under key_less's strict (distance, id) order, so the result does
+//   not depend on append order. A value that found its buffer full is
+//   retried after the merge against the new k-th; a value that did not
+//   beat the k-th never will. l2 ranks by d^2 there and takes the square
+//   root only of values that may enter.
+// - What holds it back (PERF.md; tools/knn_phases.py): the products alone
+//   take ~60% of the kernel's time at ~45% of the 3xTF32 bound; waits on
+//   the ring, merges and the tile's barrier take most of the rest.
+#include <stdint.h>
+
 #include "common.cuh"
 
 using namespace pdasc;
 
 namespace {
 
-constexpr int BQ = 16, TN = 128, BK = 32, THREADS = 256;
+constexpr int TN = 128;          // DB rows per tile
+constexpr int BK = 64;           // columns of d per ring stage
+constexpr int BS = BK + 4;       // stage row stride: conflict-free fragment reads
+constexpr int STAGES = 2;        // double buffer
+constexpr int CAP = 32;          // candidate slots per query: one per lane in a merge
+constexpr int THREADS = 256, NWARPS = THREADS / 32;  // two warpgroups
 constexpr int MERGE_THREADS = 128;
+constexpr size_t SMEM_MAX = 232448;  // what one block may use on Hopper
 
-template <int FORM>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr bool is_gram(int form) { return form <= DOT; }
+
+// Shared bytes of one block; mirrored by topk.knn_smem_bytes. Q takes
+// [bq][dpad] twice (TF32 hi and lo, core-matrix order) for the Gram forms,
+// [bq][dpad + 4] once (padded rows) for the others.
+size_t smem_bytes(int bq, int d, int k, bool gram) {
+  const size_t dpad = (size_t)(d + 7) / 8 * 8;
+  return 4 * ((gram ? 2 * dpad : dpad + 4) * bq + (size_t)STAGES * TN * BS +
+              2 * (size_t)bq * k + 2 * (size_t)bq * CAP + 5 * (size_t)bq + 2);
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Four 8 x 4 fp32 matrices from shared memory (an 8 x 8 b16 ldmatrix each);
+// lane l gives the row address of matrix l / 8, row l % 8, and receives
+// element (l / 4, l % 4) of each matrix: the TF32 MMA fragment layout.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// ---- wgmma (sm_90a): D[64 x N] += A[64 x 8] (registers) * B[N x 8] -------
+// A is the mma.m16n8k8 TF32 fragment of each warp's 16 rows; B is read from
+// shared memory through a descriptor: K-major, no swizzle, 8 x 4 core
+// matrices of 128 contiguous bytes, LBO = 128 B between core matrices along
+// K, SBO between 8-row groups. D is per warp the m16n8 accumulator layout,
+// 4 floats for each 8 columns.
+__device__ __forceinline__ uint64_t kmajor_desc(const float* p, uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Registers an asynchronous wgmma reads or writes: the compiler must keep
+// them as they are until the wait that follows.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void keep(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  __device__ __forceinline__ static void run(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void run(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void run(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+
+// Rows [r0, r0 + TN) of DB (zero past n1), columns [c0, c0 + w) (zero past
+// d) into one ring stage. w is a multiple of 8.
+__device__ __forceinline__ void load_stage(float* st, const float* DB, int r0, int n1,
+                                           int d, int c0, int w) {
+  if ((d & 3) == 0) {
+    const int per = w / 4;
+    for (int e = threadIdx.x; e < TN * per; e += THREADS) {
+      const int r = e / per, c = 4 * (e % per), gr = r0 + r;
+      const bool ok = gr < n1 && c0 + c < d;
+      cp_async16(st + r * BS + c, ok ? DB + (size_t)gr * d + c0 + c : DB, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < TN * w; e += THREADS) {
+      const int r = e / w, c = e % w, gr = r0 + r;
+      const bool ok = gr < n1 && c0 + c < d;
+      cp_async4(st + r * BS + c, ok ? DB + (size_t)gr * d + c0 + c : DB, ok);
+    }
+  }
+}
+
+// l2 ranks by d^2 until a value may enter: sqrt is monotone and correctly
+// rounded, so d^2 > kd^2 (1 + 2^-18) (a margin above fp32 rounding) puts
+// sqrt(d^2) above kd. Capped at the largest float, so that a row still at
+// its initial BIG (a query past nq) lets no +inf value through.
+__device__ __forceinline__ float sqrt_limit(float kd) {
+  return fminf(kd * kd * 1.0000039f, 3.4028235e38f);
+}
+
+// Merge the candidate buffers of the queries listed in todo[0, todo[rows])
+// (or, with todo null, of every query with an entry) into their ascending
+// top-k states, one warp per query, and note each new k-th entry (kdv,
+// kiv; klim the bound values are tested against). A buffer
+// entry's new rank is its rank in the buffer plus the state entries below
+// it; a state entry moves right by the buffer entries below it. State
+// entries are read and moved 32 at a time from the right, so no entry is
+// overwritten before it is read; buffer entries land last, on the ranks
+// left free. Ends with a block barrier.
+template <bool SQRT_LIMIT>
+__device__ void merge_rows(float* sd, int* si, const float* bd, const int* bi,
+                           int* cnt, float* kdv, int* kiv, float* klim, int* todo,
+                           int rows, int k) {
+  const int lane = threadIdx.x & 31;
+  const int m = todo ? todo[rows] : rows;
+  if (todo) {  // every warp has read the count: it may be cleared
+    __syncthreads();
+    if (threadIdx.x == 0) todo[rows] = 0;
+  }
+  for (int w = threadIdx.x >> 5; w < m; w += NWARPS) {
+    const int r = todo ? todo[w] : w;
+    const int c = min(cnt[r], CAP);
+    if (c == 0) continue;  // warp-uniform
+    float* s_d = sd + (size_t)r * k;
+    int* s_i = si + (size_t)r * k;
+    const float* b_d = bd + r * CAP;
+    const int* b_i = bi + r * CAP;
+    float ed = 0.0f;
+    int ei = 0, pe = k;
+    if (lane < c) {
+      ed = b_d[lane];
+      ei = b_i[lane];
+      int rank = 0;
+      for (int j = 0; j < c; ++j) rank += key_less(b_d[j], b_i[j], ed, ei);
+      int lo = 0, hi = k;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (key_less(s_d[mid], s_i[mid], ed, ei)) lo = mid + 1; else hi = mid;
+      }
+      pe = rank + lo;
+    }
+    for (int base = (k - 1) & ~31; base >= 0; base -= 32) {
+      const int i = base + lane;
+      float v = 0.0f;
+      int id = 0, p = i;
+      if (i < k) {
+        v = s_d[i];
+        id = s_i[i];
+        for (int j = 0; j < c; ++j) p += key_less(b_d[j], b_i[j], v, id);
+      }
+      // a chunk where nothing moves: nothing to its left moves either
+      if (__all_sync(0xffffffffu, p == i)) break;
+      __syncwarp();
+      if (i < k && p != i && p < k) { s_d[p] = v; s_i[p] = id; }
+      __syncwarp();
+    }
+    if (pe < k) { s_d[pe] = ed; s_i[pe] = ei; }
+    __syncwarp();
+    if (lane == 0) {
+      cnt[r] = 0;
+      kdv[r] = s_d[k - 1];
+      kiv[r] = s_i[k - 1];
+      klim[r] = SQRT_LIMIT ? sqrt_limit(s_d[k - 1]) : s_d[k - 1];
+    }
+  }
+  __syncthreads();
+}
+
+template <int FORM, int BQ>
+__global__ void __launch_bounds__(THREADS, 1)
 knn_kernel(const float* __restrict__ Q, const float* __restrict__ DB,
            const float* __restrict__ qq, const float* __restrict__ dd,
            float* __restrict__ part_d, int* __restrict__ part_i, int nq, int n,
            int d, int k, int chunk) {
-  extern __shared__ float smem[];
-  float* sd = smem;                      // [BQ * k] per-query states
-  int* si = (int*)(sd + BQ * k);         // [BQ * k]
-  float* nd = (float*)(si + BQ * k);     // [k] merge scratch
-  int* ni = (int*)(nd + k);              // [k]
-  __shared__ float Qs[BK][BQ];
-  __shared__ float Ds[BK][TN + 1];
-  __shared__ float Dt[BQ][TN];
-  __shared__ int tile_id[TN];
-
+  constexpr bool GRAM = is_gram(FORM);
   constexpr bool NORMS = FORM == SQEUCLIDEAN || FORM == L2 || FORM == COSINE;
-  const int q0 = blockIdx.x * BQ;
-  const int split = blockIdx.y;
-  const int n0 = split * chunk;
-  const int n1 = min(n, n0 + chunk);
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  for (int r = 0; r < BQ; ++r) init_state(sd + r * k, si + r * k, k);
+  constexpr bool LATE_SQRT = FORM == L2;  // see sqrt_limit
+  // The accumulator of a warp is WM x WN tiles of 16 x 8. Gram: a warp's
+  // 16 DB rows (wgmma's A) times all BQ queries, so rows are DB rows and
+  // columns queries. VPU: rows are queries and columns DB rows.
+  constexpr int WARPS_M = GRAM ? NWARPS : BQ >= 32 ? 2 : 1, WARPS_N = NWARPS / WARPS_M;
+  constexpr int WM = GRAM ? 1 : BQ / WARPS_M / 16;
+  constexpr int WN = GRAM ? BQ / 8 : TN / WARPS_N / 8;
+  constexpr int NV = WM * WN * 4;
+  constexpr int QA = GRAM ? WN : WM, VA = GRAM ? WM : WN;  // query groups, values a group
+  static_assert(NV <= 64 && 2 * QA <= 32, "a 64-bit value mask, a 32-bit query mask");
 
-  for (int c0 = n0; c0 < n1; c0 += TN) {
-    float acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      for (int e = threadIdx.x; e < BQ * BK; e += THREADS) {
-        const int r = e / BK, c = e % BK, gq = q0 + r, gc = k0 + c;
-        Qs[c][r] = (gq < nq && gc < d) ? Q[(size_t)gq * d + gc] : 0.0f;
-      }
-      for (int e = threadIdx.x; e < TN * BK; e += THREADS) {
-        const int r = e / BK, c = e % BK, gn = c0 + r, gc = k0 + c;
-        Ds[c][r] = (gn < n1 && gc < d) ? DB[(size_t)gn * d + gc] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[2], b[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) a[i] = Qs[kk][ty + 8 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Ds[kk][tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = accumulate<FORM>(acc[i][j], a[i], b[j]);
-      }
-      __syncthreads();
+  extern __shared__ __align__(16) float smem[];
+  const int dpad = (d + 7) & ~7, qs = GRAM ? dpad : dpad + 4;
+  float* Qh = smem;                                   // Q, or its TF32 hi part
+  float* Ql = Qh + BQ * qs;                           // its TF32 lo part (Gram)
+  float* ring = Ql + (GRAM ? BQ * qs : 0);            // [STAGES][TN][BS]
+  float* sd = ring + STAGES * TN * BS;                // [BQ][k] states
+  int* si = (int*)(sd + (size_t)BQ * k);
+  float* bd = (float*)(si + (size_t)BQ * k);          // [BQ][CAP] buffers
+  int* bi = (int*)(bd + BQ * CAP);
+  float* kdv = (float*)(bi + BQ * CAP);               // [BQ] k-th entry
+  int* kiv = (int*)(kdv + BQ);
+  float* klim = (float*)(kiv + BQ);                   // [BQ] bound a value must meet
+  int* cnt = (int*)(klim + BQ);  // [BQ] buffer fill; [BQ]: the last pass that overflowed
+  int* todo = cnt + BQ + 1;      // [BQ] queries to merge; [BQ]: their count
+
+  const int q0 = blockIdx.x * BQ;
+  const int n0 = blockIdx.y * chunk;
+  const int n1 = min(n, n0 + chunk);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = (warp / WARPS_N) * (GRAM ? 16 : BQ / WARPS_M);
+  const int col0 = (warp % WARPS_N) * (TN / WARPS_N);
+  // ldmatrix row addresses of the A fragment (DB rows of the stage): rows
+  // of matrix l / 8 are +8 for odd matrices, columns +4 for the upper two
+  const int lm = lane >> 3, lr = lane & 7;
+  const int a_off = (row0 + lr + 8 * (lm & 1)) * BS + 4 * (lm >> 1);
+  const uint32_t q_sbo = (uint32_t)dpad * 32;  // bytes between 8-query groups
+
+  // A buffer is merged once it holds 2k entries (k of them alone bound the
+  // k-th), or when it overflows; the others wait, as merges cost a barrier.
+  // Only an overflow makes the tile's values go round again; `pass` numbers
+  // the rounds, so the overflow mark needs no reset.
+  const int fill = min(2 * k, CAP);
+  int pass = 0;
+  const int nch = (dpad + BK - 1) / BK;
+  const int steps = (n1 - n0 + TN - 1) / TN * nch;
+  auto issue = [&](int s) {
+    if (s < steps) {
+      const int c0 = (s % nch) * BK;
+      load_stage(ring + (s % STAGES) * TN * BS, DB, n0 + (s / nch) * TN, n1, d, c0,
+                 min(BK, dpad - c0));
     }
+    cp_commit();  // empty groups keep the wait count uniform
+  };
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = ty + 8 * i, gq = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 32 * j, gn = c0 + c;
-        float v = INFINITY;
-        if (gq < nq && gn < n1)
-          v = finish<FORM>(acc[i][j], NORMS ? qq[gq] : 0.0f, NORMS ? dd[gn] : 0.0f);
-        Dt[r][c] = v;
-      }
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+  for (int e = threadIdx.x; e < BQ * dpad; e += THREADS) {
+    const int r = e / dpad, c = e % dpad, gq = q0 + r;
+    const float x = (gq < nq && c < d) ? Q[(size_t)gq * d + c] : 0.0f;
+    if constexpr (GRAM) {  // core-matrix order: 8 queries x 4 columns in 128 bytes
+      const int o = ((r >> 3) * (dpad >> 2) + (c >> 2)) * 32 + (r & 7) * 4 + (c & 3);
+      const uint32_t h = tf32(x);
+      Qh[o] = __uint_as_float(h);
+      Ql[o] = __uint_as_float(tf32(x - __uint_as_float(h)));
+    } else {
+      Qh[r * qs + c] = x;
     }
-    if (threadIdx.x < TN) {
-      const int gn = c0 + (int)threadIdx.x;
-      tile_id[threadIdx.x] = gn < n1 ? gn : INT_MAX;
-    }
-    __syncthreads();
-    for (int r = 0; r < BQ && q0 + r < nq; ++r)
-      merge_tile(sd + r * k, si + r * k, nd, ni, Dt[r], tile_id, TN, k);
-    __syncthreads();
   }
-  for (int r = 0; r < BQ && q0 + r < nq; ++r) {
-    for (int i = threadIdx.x; i < k; i += THREADS) {
-      const size_t o = ((size_t)split * nq + q0 + r) * k + i;
-      const bool real = si[r * k + i] >= 0;  // an init entry holds no DB row
-      part_d[o] = real ? sd[r * k + i] : INFINITY;
-      part_i[o] = real ? si[r * k + i] : INT_MAX;
+  for (int e = threadIdx.x; e < BQ * k; e += THREADS) {
+    sd[e] = BIG;
+    si[e] = e % k - k;  // distinct negative ids: below any real id at BIG
+  }
+  for (int r = threadIdx.x; r < BQ; r += THREADS) {
+    kdv[r] = BIG;  // the initial state's k-th entry
+    kiv[r] = -1;
+    klim[r] = LATE_SQRT ? sqrt_limit(BIG) : BIG;
+    cnt[r] = 0;
+  }
+  if (threadIdx.x == 0) cnt[BQ] = todo[BQ] = 0;
+
+  // acc[(mt * WN + nt) * 4 + e]: row row0 + 16 mt + g + 8 (e >> 1), column
+  // col0 + 8 nt + 2 t + (e & 1). A query group is one query of the thread
+  // (qa, qb); its values are (va, vb).
+  auto idx = [](int qa, int qb, int va, int vb) {
+    return GRAM ? (va * WN + qa) * 4 + 2 * vb + qb : (qa * WN + va) * 4 + 2 * qb + vb;
+  };
+  auto query_of = [&](int qa, int qb) {  // within the block
+    return GRAM ? col0 + 8 * qa + 2 * t + qb : row0 + 16 * qa + g + 8 * qb;
+  };
+  auto row_of = [&](int va, int vb) {  // DB row within the tile
+    return GRAM ? row0 + 16 * va + g + 8 * vb : col0 + 8 * va + 2 * t + vb;
+  };
+  float qn[QA][2], dn[VA][2] = {};  // ||q||^2 of the thread's queries, ||y||^2 of its rows
+#pragma unroll
+  for (int qa = 0; qa < QA; ++qa)
+#pragma unroll
+    for (int qb = 0; qb < 2; ++qb) {
+      const int gq = q0 + query_of(qa, qb);
+      qn[qa][qb] = (NORMS && gq < nq) ? qq[gq] : 0.0f;
     }
+  float lim[QA][2];  // klim of the thread's queries, read again after merges
+  auto load_lim = [&]() {
+#pragma unroll
+    for (int qa = 0; qa < QA; ++qa)
+#pragma unroll
+      for (int qb = 0; qb < 2; ++qb) lim[qa][qb] = klim[query_of(qa, qb)];
+  };
+#pragma unroll
+  for (int qa = 0; qa < QA; ++qa)
+#pragma unroll
+    for (int qb = 0; qb < 2; ++qb) lim[qa][qb] = LATE_SQRT ? sqrt_limit(BIG) : BIG;
+  float acc[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) acc[i] = 0.0f;
+  uint32_t ah[2][4] = {}, al[2][4] = {};  // A fragments (hi, lo), double-buffered
+
+  for (int s = 0; s < steps; ++s) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    issue(s + STAGES - 1);
+    const float* st = ring + (s % STAGES) * TN * BS;
+    const int c0 = (s % nch) * BK, ks = min(BK, dpad - c0) / 8;
+    const bool last = s % nch == nch - 1;
+    const int tb = n0 + (s / nch) * TN;
+    if (NORMS && last) {  // issued ahead of the products they wait behind
+#pragma unroll
+      for (int va = 0; va < VA; ++va)
+#pragma unroll
+        for (int vb = 0; vb < 2; ++vb) {
+          const int gn = tb + row_of(va, vb);
+          dn[va][vb] = gn < n1 ? dd[gn] : 0.0f;
+        }
+    }
+    if constexpr (GRAM) {
+      // Each k-step: split this warp's A fragment (16 DB rows x 8) into hi
+      // and lo, then lo*Qhi + hi*Qlo + hi*Qhi on the warpgroup's tensor
+      // cores. The next fragment is split while those run.
+      auto split = [&](int kk, uint32_t (&h)[4], uint32_t (&l)[4]) {
+        uint32_t raw[4];
+        ldsm_x4(raw, st + a_off + kk * 8);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = __uint_as_float(raw[i]);
+          h[i] = tf32(x);
+          l[i] = tf32(x - __uint_as_float(h[i]));
+        }
+      };
+      split(0, ah[0], al[0]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        if (kk >= ks) break;
+        const int b = kk & 1;
+        const int kc = c0 + kk * 8;
+        const uint64_t dh = kmajor_desc(Qh + kc * 8, q_sbo);
+        const uint64_t dl = kmajor_desc(Ql + kc * 8, q_sbo);
+        wg_fence();
+        Wgmma<BQ>::run(acc, al[b], dh);
+        Wgmma<BQ>::run(acc, ah[b], dl);
+        Wgmma<BQ>::run(acc, ah[b], dh);
+        wg_commit();
+        if (kk + 1 < ks) {
+          wg_wait<1>();  // the products of step kk - 1 are done: its buffer is free
+          keep(ah[b ^ 1]);
+          keep(al[b ^ 1]);
+          split(kk + 1, ah[b ^ 1], al[b ^ 1]);
+        }
+      }
+      wg_wait<0>();
+      keep(acc);
+      keep(ah[0]);
+      keep(al[0]);
+      keep(ah[1]);
+      keep(al[1]);
+    } else {
+      for (int kc = c0; kc < c0 + ks * 8; kc += 4) {
+        float4 a[WM][2], b[WN][2];
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            a[mt][h] = *(const float4*)(Qh + (row0 + mt * 16 + g + 8 * h) * qs + kc);
+#pragma unroll
+        for (int nt = 0; nt < WN; ++nt)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1)
+            b[nt][e1] = *(const float4*)(st + (col0 + nt * 8 + 2 * t + e1) * BS + kc - c0);
+#pragma unroll
+        for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < WN; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float4 x = a[mt][e >> 1], y = b[nt][e & 1];
+              float& c = acc[(mt * WN + nt) * 4 + e];
+              c = accumulate<FORM>(c, x.x, y.x);
+              c = accumulate<FORM>(c, x.y, y.y);
+              c = accumulate<FORM>(c, x.z, y.z);
+              c = accumulate<FORM>(c, x.w, y.w);
+            }
+      }
+    }
+    if (!last) continue;
+
+    // ---- epilogue of the tile: distances, then candidates -----------------
+    // Values outside the queries or the split become +inf: never below a
+    // k-th entry, which is at most BIG.
+#pragma unroll
+    for (int qa = 0; qa < QA; ++qa)
+#pragma unroll
+      for (int qb = 0; qb < 2; ++qb) {
+        const bool qin = q0 + query_of(qa, qb) < nq;
+#pragma unroll
+        for (int va = 0; va < VA; ++va)
+#pragma unroll
+          for (int vb = 0; vb < 2; ++vb) {
+            float& v = acc[idx(qa, qb, va, vb)];
+            v = qin && tb + row_of(va, vb) < n1
+                    ? finish<LATE_SQRT ? SQEUCLIDEAN : FORM>(v, qn[qa][qb], dn[va][vb])
+                    : INFINITY;
+          }
+      }
+    // Bit i of done: value i appended or ruled out (the k-th only falls).
+    // Each round first marks, branch-free, the thread's queries that have a
+    // value at or below their bound; only those are visited, their values
+    // picked out of the accumulator by selects.
+    uint64_t done = 0;
+    while (true) {
+      ++pass;
+      uint32_t may = 0;  // bit 2 qa + qb: query (qa, qb) may take a value
+#pragma unroll
+      for (int qa = 0; qa < QA; ++qa)
+#pragma unroll
+        for (int qb = 0; qb < 2; ++qb) {
+          float least = INFINITY;
+#pragma unroll
+          for (int va = 0; va < VA; ++va)
+#pragma unroll
+            for (int vb = 0; vb < 2; ++vb) least = fminf(least, acc[idx(qa, qb, va, vb)]);
+          may |= (uint32_t)(least <= lim[qa][qb]) << (2 * qa + qb);
+        }
+      int ready = 0;  // a buffer reached `fill`, or overflowed
+      while (may) {
+        const int gi = __ffs(may) - 1, ga = gi >> 1, gb = gi & 1;
+        may &= may - 1;
+        float glim = 0.0f, gv[VA][2] = {};
+#pragma unroll
+        for (int qa = 0; qa < QA; ++qa)
+#pragma unroll
+          for (int qb = 0; qb < 2; ++qb) {
+            const bool hit = 2 * qa + qb == gi;
+            glim = hit ? lim[qa][qb] : glim;
+#pragma unroll
+            for (int va = 0; va < VA; ++va)
+#pragma unroll
+              for (int vb = 0; vb < 2; ++vb)
+                gv[va][vb] = hit ? acc[idx(qa, qb, va, vb)] : gv[va][vb];
+          }
+        const int qi = query_of(ga, gb);
+#pragma unroll
+        for (int va = 0; va < VA; ++va)
+#pragma unroll
+          for (int vb = 0; vb < 2; ++vb) {
+            const int i = idx(ga, gb, va, vb);
+            if ((done >> i & 1) || !(gv[va][vb] <= glim)) continue;
+            const float v = LATE_SQRT ? sqrtf(gv[va][vb]) : gv[va][vb];
+            const int id = tb + row_of(va, vb);
+            if (key_less(v, id, kdv[qi], kiv[qi])) {
+              const int slot = atomicAdd(&cnt[qi], 1);
+              if (slot + 1 == fill) {  // enough fresh candidates: merge the query
+                ready = 1;
+                todo[atomicAdd(&todo[BQ], 1)] = qi;
+              }
+              if (slot >= CAP) {  // full: retry after the merge
+                ready = 1;
+                cnt[BQ] = pass;
+                continue;
+              }
+              bd[qi * CAP + slot] = v;
+              bi[qi * CAP + slot] = id;
+            }
+            done |= 1ull << i;
+          }
+      }
+      if (!__syncthreads_or(ready)) break;
+      const bool retry = cnt[BQ] == pass;
+      merge_rows<LATE_SQRT>(sd, si, bd, bi, cnt, kdv, kiv, klim, todo, BQ, k);
+      load_lim();
+      if (!retry) break;
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[i] = 0.0f;
+  }
+  cp_wait<0>();
+  merge_rows<LATE_SQRT>(sd, si, bd, bi, cnt, kdv, kiv, klim, nullptr, BQ, k);
+
+  for (int e = threadIdx.x; e < BQ * k; e += THREADS) {
+    const int gq = q0 + e / k;
+    if (gq >= nq) break;
+    const size_t o = ((size_t)blockIdx.y * nq + gq) * k + e % k;
+    const bool real = si[e] >= 0;  // an init entry holds no DB row
+    part_d[o] = real ? sd[e] : INFINITY;
+    part_i[o] = real ? si[e] : INT_MAX;
   }
 }
 
@@ -121,7 +631,7 @@ __global__ void __launch_bounds__(MERGE_THREADS)
 knn_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
                  float* __restrict__ out_d, int* __restrict__ out_i, int nq, int k,
                  int splits) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* sd = smem;
   int* si = (int*)(sd + k);
   float* nd = (float*)(si + k);
@@ -147,32 +657,47 @@ knn_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_
   }
 }
 
-template <int FORM>
-int launch(const float* Q, const float* DB, const float* qq, const float* dd,
-           float* pd, int* pi, int nq, int n, int d, int k, int chunk, int splits,
-           cudaStream_t s) {
-  const size_t smem = sizeof(float) * (2 * (size_t)BQ * k + 2 * (size_t)k);
-  cudaError_t err = cudaFuncSetAttribute((const void*)knn_kernel<FORM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int FORM, int BQ>
+int launch_tile(const float* Q, const float* DB, const float* qq, const float* dd,
+                float* pd, int* pi, int nq, int n, int d, int k, int chunk, int splits,
+                cudaStream_t s) {
+  const size_t smem = smem_bytes(BQ, d, k, is_gram(FORM));
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem((const void*)knn_kernel<FORM, BQ>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((nq + BQ - 1) / BQ, splits);
-  knn_kernel<FORM><<<grid, THREADS, smem, s>>>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk);
+  knn_kernel<FORM, BQ><<<grid, THREADS, smem, s>>>(Q, DB, qq, dd, pd, pi, nq, n, d, k,
+                                                   chunk);
   return 0;
+}
+
+template <int FORM>
+int launch(int bq, const float* Q, const float* DB, const float* qq, const float* dd,
+           float* pd, int* pi, int nq, int n, int d, int k, int chunk, int splits,
+           cudaStream_t s) {
+  switch (bq) {
+    case 128: return launch_tile<FORM, 128>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk, splits, s);
+    case 64: return launch_tile<FORM, 64>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk, splits, s);
+    case 32: return launch_tile<FORM, 32>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk, splits, s);
+    case 16: return launch_tile<FORM, 16>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk, splits, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Q[nq,d], DB[n,d] fp32; qq[nq], dd[n] fp32 norm scratch (Gram forms other
 // than dot); part_d/part_i[splits,nq,k] scratch; out dists[nq,k] fp32,
-// ids[nq,k] int32. Split s covers DB rows [s*chunk, min(n,(s+1)*chunk)).
+// ids[nq,k] int32. Split s covers DB rows [s*chunk, min(n,(s+1)*chunk));
+// bq (128, 64, 32 or 16) queries per block.
 extern "C" int knn_launch(const void* Q, const void* DB, void* qq, void* dd,
                           void* part_d, void* part_i, void* out_d, void* out_i,
-                          int nq, int n, int d, int k, int chunk, int splits,
+                          int nq, int n, int d, int k, int chunk, int splits, int bq,
                           int form, void* stream) {
   cudaGetLastError();
   if (nq <= 0) return 0;
-  if (k < 1 || k > n || chunk < 1 || splits < 1 || (long long)chunk * splits < n ||
+  if (k < 1 || k > n || d < 1 || chunk < 1 || splits < 1 ||
+      (long long)chunk * splits < n || (long long)chunk * (splits - 1) >= n ||
       splits > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -188,12 +713,12 @@ extern "C" int knn_launch(const void* Q, const void* DB, void* qq, void* dd,
   int* pi = (int*)part_i;
   int err = 0;
   switch (form) {
-    case SQEUCLIDEAN: err = launch<SQEUCLIDEAN>(q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case L2: err = launch<L2>(q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case COSINE: err = launch<COSINE>(q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case DOT: err = launch<DOT>(q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case L1: err = launch<L1>(q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case CHEBYSHEV: err = launch<CHEBYSHEV>(q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
+    case SQEUCLIDEAN: err = launch<SQEUCLIDEAN>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
+    case L2: err = launch<L2>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
+    case COSINE: err = launch<COSINE>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
+    case DOT: err = launch<DOT>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
+    case L1: err = launch<L1>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
+    case CHEBYSHEV: err = launch<CHEBYSHEV>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;

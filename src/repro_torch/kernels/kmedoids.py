@@ -2,7 +2,8 @@
 ``repro.kernels.kmedoids.swap_deltas_pallas``.
 
 ``swap_deltas_cuda`` computes ``dTD[G, k, g] = S[G, None, g] + T[G, k, g]``
-for a whole slab of groups in one launch; its plain version is
+for a whole slab of groups in one call (a kernel that orders each group's
+rows by slot, then the sweep); its plain version is
 ``ref.swap_deltas_ref``. The sum order is fixed, so the result is the same
 from run to run.
 """
@@ -18,8 +19,23 @@ from repro_torch.kernels import _build
 launches = 0  # kernel launches since the last ops.reset_launch_counts()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"swap_launch": [_P] * 6 + [_I] * 3 + [_P]}
+_SIGNATURES = {"swap_launch": [_P] * 9 + [_I] * 3 + [_P]}
 _SMEM_LIMIT = 227 * 1024
+_BN, _STAGES, _ROWS = 64, 4, 16  # swap.cu's column tile and row ring
+
+
+def swap_smem_bytes(g: int, k: int) -> int:
+    """Shared memory of one ``swap.cu`` sweep block: the ``[k, 64]`` T tile,
+    the 4 x 16-row ring, the S row, and each row's ordered caches (16
+    bytes) and row index (4 bytes)."""
+    rows = -(-g // _ROWS) * _ROWS
+    return 4 * (k * _BN + _STAGES * _ROWS * _BN + _BN) + 20 * rows
+
+
+def check_swap_shape(g: int, k: int) -> None:
+    """Raise for the ``(g, k)`` that one block cannot hold."""
+    if k < 1 or swap_smem_bytes(g, k) > _SMEM_LIMIT:
+        raise ValueError(f"swap_deltas_cuda: g={g}, k={k} exceed shared memory")
 
 
 def swap_deltas_cuda(
@@ -42,13 +58,16 @@ def swap_deltas_cuda(
             raise ValueError("swap_deltas_cuda takes contiguous CUDA tensors")
     if D.dtype != torch.float32:
         raise ValueError("swap_deltas_cuda takes fp32 D")
-    if 4 * (32 * g + 3 * g + 32 * k + 256) > _SMEM_LIMIT:
-        raise ValueError(f"swap_deltas_cuda: g={g}, k={k} exceed shared memory")
+    check_swap_shape(g, k)
     out = torch.empty((G, k, g), device=D.device, dtype=torch.float32)
+    perm = torch.empty((G, g), device=D.device, dtype=torch.int32)
+    rc = torch.empty((G, g, 4), device=D.device, dtype=torch.float32)
+    nv = torch.empty(G, device=D.device, dtype=torch.int32)
     lib = _build.load("swap", _SIGNATURES)
     err = lib.swap_launch(
         D.data_ptr(), d1.data_ptr(), d2.data_ptr(), n1.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), G, g, k,
+        valid.data_ptr(), out.data_ptr(), perm.data_ptr(), rc.data_ptr(),
+        nv.data_ptr(), G, g, k,
         torch.cuda.current_stream(D.device).cuda_stream,
     )
     _build.check(err, "swap")

@@ -15,25 +15,36 @@ distances, as ``jax.lax.top_k`` does.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import FORMS, NORM_FORMS
+from repro_torch.kernels.ref import FORMS, NORM_FORMS, VPU_FORMS
 
 rank_launches = 0  # launches since the last ops.reset_launch_counts()
 knn_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _RANK = {"rank_launch": [_P] * 7 + [_I] * 6 + [_P]}
-_KNN = {"knn_launch": [_P] * 8 + [_I] * 7 + [_P]}
+_KNN = {"knn_launch": [_P] * 8 + [_I] * 8 + [_P]}
 
 _SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
 _RANK_TILE = 128  # candidates per tile in rank.cu
-_KNN_MAX_K = 1024  # knn.cu keeps 16 queries' states in shared memory
-_KNN_BLOCKS = 4 * 132  # blocks to aim for: four per H100 SM
+_KNN_MAX_K = 1024
+_KNN_TILES = (16, 32, 64, 128)  # knn.cu's query tiles (a template parameter)
+_KNN_TN, _KNN_BK, _KNN_STAGES, _KNN_CAP = 128, 64, 2, 32  # as in knn.cu
 _KNN_MIN_SPLIT = 1024  # fewest DB rows a split is worth
+H100_SMS = 132
+
+
+class KnnGeometry(NamedTuple):
+    """A ``knn.cu`` launch: ``bq`` queries per block, DB rows ``[s * chunk,
+    (s + 1) * chunk)`` for split ``s < splits``."""
+
+    bq: int
+    chunk: int
+    splits: int
 
 
 def _check_cuda(*tensors) -> None:
@@ -88,13 +99,32 @@ def rank_cuda(
     return out_d, out_s
 
 
-def knn_splits(nq: int, n: int) -> tuple[int, int]:
-    """``(chunk, splits)``: DB rows per split and the number of splits, so
-    that query tiles x splits fill the card."""
-    qtiles = _cdiv(nq, 16)
-    splits = max(1, min(_cdiv(_KNN_BLOCKS, qtiles), _cdiv(n, _KNN_MIN_SPLIT)))
-    chunk = _cdiv(_cdiv(n, splits), 128) * 128
-    return chunk, _cdiv(n, chunk)
+def knn_smem_bytes(bq: int, d: int, k: int, form: str) -> int:
+    """Shared memory of one ``knn.cu`` block: Q (its TF32 hi and lo halves
+    for the Gram forms, padded rows for l1 and chebyshev), the DB ring, the
+    top-k states, the candidate buffers, the per-query k-th entries and the
+    list of queries to merge."""
+    dpad = _cdiv(d, 8) * 8
+    q_row = dpad + 4 if form in VPU_FORMS else 2 * dpad
+    return 4 * (q_row * bq + _KNN_STAGES * _KNN_TN * (_KNN_BK + 4)
+                + 2 * bq * k + 2 * bq * _KNN_CAP + 5 * bq + 2)
+
+
+def knn_geometry(nq: int, n: int, d: int, k: int, form: str,
+                 sms: int = H100_SMS) -> KnnGeometry:
+    """The launch of ``knn.cu``: the smallest query tile that covers ``nq``
+    among those that fit (else the largest that fits), and as many DB
+    splits as fill one wave of one block per SM with the query tiles (long
+    splits amortise the merges of their first tiles; one block a split and
+    query tile)."""
+    fits = [b for b in _KNN_TILES if knn_smem_bytes(b, d, k, form) <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"knn_cuda: k={k} at d={d} exceeds shared memory")
+    bq = next((b for b in fits if b >= nq), fits[-1])
+    splits = max(1, min(sms // max(1, _cdiv(nq, bq)), _cdiv(n, _KNN_MIN_SPLIT),
+                        65535))
+    chunk = _cdiv(_cdiv(n, splits), _KNN_TN) * _KNN_TN
+    return KnnGeometry(bq, chunk, _cdiv(n, chunk))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -119,7 +149,9 @@ def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
     if Q.dtype != torch.float32 or DB.dtype != torch.float32:
         raise ValueError("knn_cuda takes fp32 tensors")
     _check_cuda(Q, DB)
-    chunk, splits = knn_splits(nq, n)
+    geo = knn_geometry(nq, n, d, k, form,
+                       torch.cuda.get_device_properties(Q.device).multi_processor_count)
+    chunk, splits = geo.chunk, geo.splits
     norms = form in NORM_FORMS
     dev = Q.device
     qq = torch.empty(nq if norms else 0, device=dev)
@@ -132,7 +164,7 @@ def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
     err = lib.knn_launch(
         Q.data_ptr(), DB.data_ptr(), qq.data_ptr(), dd.data_ptr(),
         part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), nq, n, d, k, chunk, splits, FORMS.index(form),
+        out_i.data_ptr(), nq, n, d, k, chunk, splits, geo.bq, FORMS.index(form),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "knn")

@@ -248,3 +248,139 @@ def test_topk_order_lower_index_first_on_ties():
     assert idx.tolist() == [[3, 1, 2, 4, 0]]
     assert vals.tolist() == [[0.5, 1.0, 1.0, 1.0, 3.0]]
 
+
+
+# ---------------------------------------------------------------------------
+# knn.cu's precision: 3xTF32 on the tensor cores keeps fp32's ranking
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, on the low 13 mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _gram_tf32(Q, DB, three: bool):
+    """``Q @ DB.T`` as knn.cu forms it: each operand split once as
+    ``hi + lo`` (``hi = tf32(x)``, ``lo = tf32(x - hi)``) and the three
+    products ``lo*hi' + hi*lo' + hi*hi'`` summed in fp32; or, with
+    ``three=False``, plain TF32 (``hi*hi'`` alone)."""
+    qh, dh = _tf32(Q), _tf32(DB)
+    if not three:
+        return qh @ dh.T
+    ql, dl = _tf32(Q - qh), _tf32(DB - dh)
+    return ql @ dh.T + qh @ dl.T + qh @ dh.T
+
+
+def _gram_distances(G, qq, dd, form):
+    """The Gram epilogue of ``ref.pairwise_ref`` on a given product."""
+    if form == "l2":
+        return torch.sqrt(torch.clamp(qq[:, None] + dd[None] - 2 * G, min=0))
+    norm = (torch.sqrt(torch.clamp(qq, min=1e-12))[:, None]
+            * torch.sqrt(torch.clamp(dd, min=1e-12))[None])
+    return 1 - torch.clamp(G / norm, -1, 1)
+
+
+def _precision_case(form, three):
+    """Emulated and fp64 distances of 64 dense_embed queries against 20,000
+    rows (d = 100); l2 returned squared, as the tolerance rule compares it."""
+    from repro_torch.data import make_dataset
+
+    data = make_dataset("dense_embed", n=20_064, seed=3)
+    Q, DB = torch.from_numpy(data[:64]), torch.from_numpy(data[64:])
+    got = _gram_distances(_gram_tf32(Q, DB, three), (Q * Q).sum(-1),
+                          (DB * DB).sum(-1), form)
+    Q64, D64 = Q.double(), DB.double()
+    want = _gram_distances(Q64 @ D64.T, (Q64 * Q64).sum(-1),
+                           (D64 * D64).sum(-1), form)
+    if form == "l2":
+        got, want = got.double() ** 2, want ** 2
+    return Q, DB, got, want
+
+
+@pytest.mark.parametrize("form", ["l2", "cosine"])
+def test_knn_3xtf32_keeps_the_fp32_ranking(form):
+    Q, DB, got, want = _precision_case(form, three=True)
+    assert_close(got.numpy(), want.numpy())
+    emulated = got.sqrt() if form == "l2" else got
+    gd, gi = ref.topk_smallest(emulated.float(), 10)
+    wd, wi = ref.knn_ref(Q, DB, 10, form)
+    assert_topk_agree(gd, gi, wd, wi)
+
+
+@pytest.mark.parametrize("form", ["l2", "cosine"])
+def test_knn_plain_tf32_breaks_the_tolerance_rule(form):
+    """Why knn.cu splits its operands: one TF32 product keeps ~11 mantissa
+    bits, and its distances leave the tolerance rule."""
+    _, _, got, want = _precision_case(form, three=False)
+    err = (got - want).abs().numpy()
+    tol = _tol(want.numpy()) + 1e-5 * want.abs().numpy()
+    assert (err > tol).mean() > 0.1
+
+
+# ---------------------------------------------------------------------------
+# host-side logic of the CUDA wrappers (no card needed)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nq,n,d", [(1000, 1_000_000, 100), (1, 3000, 100),
+                                    (129, 1037, 3), (37, 5000, 13),
+                                    (70_000, 1500, 100)])
+@pytest.mark.parametrize("k", [1, 10, 300, 1024])
+def test_knn_geometry_covers_the_db_once(nq, n, d, k):
+    from repro_torch.kernels import topk
+
+    geo = topk.knn_geometry(nq, n, d, k, "l2")
+    assert geo.bq in (16, 32, 64, 128) and 1 <= geo.splits <= 65535
+    assert geo.chunk % 128 == 0
+    starts = np.arange(geo.splits) * geo.chunk
+    ends = np.minimum(n, starts + geo.chunk)
+    assert (ends > starts).all()  # no empty split
+    assert np.array_equal(np.concatenate([np.arange(a, b) for a, b in
+                                          zip(starts, ends)]), np.arange(n))
+    for form in ("l2", "l1"):
+        bq = topk.knn_geometry(nq, n, d, k, form).bq
+        assert topk.knn_smem_bytes(bq, d, k, form) <= 227 * 1024
+
+
+def test_knn_geometry_picks_the_query_tile():
+    """The smallest tile that covers the queries, else the largest that
+    fits; shapes no tile can hold raise."""
+    from repro_torch.kernels import topk
+
+    assert topk.knn_geometry(1000, 10**6, 100, 10, "l2").bq == 128
+    assert topk.knn_geometry(1000, 10**6, 100, 1024, "l2").bq == 16
+    assert topk.knn_geometry(5, 10**6, 100, 10, "l2").bq == 16
+    with pytest.raises(ValueError):
+        topk.knn_geometry(10, 10**6, 4096, 10, "l2")
+
+
+def test_swap_shared_memory_check():
+    from repro_torch.kernels import kmedoids as kmk
+
+    kmk.check_swap_shape(256, 128)  # the main path's sweep
+    assert kmk.swap_smem_bytes(256, 128) <= 227 * 1024
+    for g, k in [(256, 1024), (20_000, 8), (256, 0)]:
+        with pytest.raises(ValueError):
+            kmk.check_swap_shape(g, k)
+
+
+@pytest.mark.parametrize("source,names", [
+    ("knn.cu", {"TN": "_KNN_TN", "BK": "_KNN_BK", "STAGES": "_KNN_STAGES",
+                "CAP": "_KNN_CAP"}),
+    ("swap.cu", {"BN": "_BN", "STAGES": "_STAGES", "R": "_ROWS"}),
+])
+def test_wrapper_layouts_mirror_the_kernels(source, names):
+    """The wrappers' shared-memory sums use the kernels' tile constants."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import kmedoids as kmk, topk
+
+    text = (Path(ops.__file__).resolve().parents[1] / "csrc" / source).read_text()
+    module = topk if source == "knn.cu" else kmk
+    for c_name, py_name in names.items():
+        found = re.search(rf"\b{c_name} = (\d+)", text)
+        assert found and int(found.group(1)) == getattr(module, py_name), c_name
