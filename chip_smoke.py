@@ -11,13 +11,22 @@ result line):
    card's name and power limit.
 2. Kernel parity: each kernel against its plain PyTorch version on the
    card, over every form, shapes that are not multiples of any tile,
-   masked rows and ``k = w``; knn also at d = 3 and 100, q = 1 and 129,
-   k = 1024, on a DB of copied rows (lower ids first among copies) and
-   with repeat calls that must be bit-identical; swap_deltas also at
-   g = 300, k = 1 and with every row of one slot masked; the scan kernel
-   over every form x {int8, fp16, int4, binary}, ragged d (13, 100, 3),
-   w = 1, a ``slot_valid`` mask, and a repeat run that must be
-   bit-identical.
+   masked rows and ``k = w``. pairwise at G = 1, 3 and a 1024-group slab
+   whose last group is part padding, m and n of 1, 37, 129 and 300, d = 1,
+   3, 13, 100 and 1536, X the same tensor as Y and not, and on integer
+   data bit for bit (sqeuclidean); rank at w = 1, 31, 33, 384 and 4096
+   with k = 1, 10 and w, d = 3, 100 and 1536, one table row in two slots
+   (lower slot first); knn at d = 3 and 100, q = 1 and 129, k = 1024, on a
+   DB of copied rows (lower ids first among copies), and on its streaming
+   route (d = 1536 and 4096, k = 1024 at d = 1536, the largest k it admits
+   at d = 100); swap_deltas also at g = 300, k = 1 and with every row of
+   one slot masked; the scan kernel over every form x {int8, fp16, int4,
+   binary}, ragged d (13, 100, 3), w = 1, a ``slot_valid`` mask. Every
+   kernel's repeat call must be bit-identical.
+   Then the card's build against the port's CPU build: integer-valued
+   dense_embed-shaped data (n = 20,000, d = 100, values in [0, 64)),
+   gl = 256, euclidean, pam, no shuffle, equal level by level; a
+   real-valued 50,000-row slice with level-0 TD within 1%.
 3. The main path at a real size: ``dense_embed`` (a GloVe-100-sized
    surrogate), n = 1,000,000, d = 100, built with gl = 256, euclidean,
    ``method="pam"``; 1,000 held-out queries through
@@ -34,15 +43,20 @@ result line):
    result, the card held against the port's CPU two-stage on 256 queries;
    payload bytes per vector; fp16, int4 and binary stores through
    ``search_two_stage``; a profile of one two-stage call.
-4. Each kernel timed with CUDA events at the main path's shapes, beside
-   its plain version, one PyTorch library call where one computes the same
-   function, and its bound: the larger of bytes over 3.35 TB/s and
-   operations over the peak of the fastest route the work can take at its
-   precision (the H100 SXM's published peaks): 67 TFLOP/s fp32 on the CUDA
-   cores, or for the Gram forms of knn and pairwise the lesser time of
-   that and 3xTF32 on the tensor cores (495 TFLOP/s TF32 / 3). knn also
-   in l1 (its CUDA-core route). The scan kernel at the storage path's
-   shapes in each of its four code formats.
+4. Each kernel's device time (CUDA events around replays of a CUDA graph
+   of its calls: no host gaps; rank and scan also without the graph,
+   host gaps included) at the main path's shapes, beside its plain
+   version and one PyTorch library call or composition that computes the
+   same function (CUDA events around back-to-back calls), and its bound:
+   the larger of bytes over 3.35 TB/s and operations over the peak of
+   the fastest route the work can take at its precision (the H100 SXM's
+   published peaks): 67 TFLOP/s fp32 on the CUDA cores, or for the Gram
+   forms of knn and pairwise the lesser time of that and 3xTF32 on the
+   tensor cores (495 TFLOP/s TF32 / 3). pairwise and knn also in l1
+   (their CUDA-core routes), knn also on its streaming route at [1000,
+   100,000, 1536, 10]; rank also summed over one beam search's launches
+   (from the profile). The scan kernel at the storage path's shapes in
+   each of its four code formats.
 5. Recall against the record: dense_embed n = 7,800, gl = 256, euclidean,
    beam 32 must reach recall@10 >= 0.85.
 6. The quickstart on the card: euclidean, manhattan, chebyshev and cosine
@@ -55,8 +69,8 @@ through the square root); top-k ids agree except among entries whose
 distances lie within that tolerance of each other. TF32 is off for every
 matrix product (``allow_tf32 = False``, matmul precision "highest").
 
-The second-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The last three lines are the kernels' JSON record, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -91,6 +105,22 @@ KNN_CASES = [  # (q, n, d, k): ragged against every tile, q = 1 and 129
     (37, 1000, 13, 10), (16, 129, 100, 1), (3, 300, 5, 300), (70, 5000, 64, 32),
     (20, 1037, 3, 10), (45, 3001, 100, 16), (1, 2000, 100, 10),
     (129, 1500, 100, 10), (5, 3000, 100, 1024)]
+KNN_STREAM_SHAPE = (1000, 100_000, 1536)  # timed: q, n, d (k = 10, l2)
+KNN_STREAM_CASES = [  # (q, n, d, k): the streaming route (any d; k > 1024)
+    (37, 3000, 1536, 10), (5, 2000, 4096, 10), (20, 3000, 1536, 1024)]
+PAIRWISE_CASES = [  # (G, m, n, d, X is Y): ragged against the 128-row tile
+    (1, 37, 91, 13, False), (3, 70, 65, 100, False), (1, 1, 129, 2, False),
+    (2, 64, 64, 16, False), (1, 1, 37, 1, False), (3, 37, 129, 3, False),
+    (1, 129, 300, 13, False), (3, 300, 1, 100, False), (1, 37, 129, 1536, False), (3, 129, 129, 100, True),
+    (1, 300, 300, 1536, True), (3, 37, 37, 13, True), (1024, 256, 256, 100, True)]
+PAIRWISE_INT_CASES = [  # (G, m, n, d, |x| <, X is Y): every sum below 2^24
+    (3, 129, 300, 3, 2048, False), (2, 256, 256, 100, 64, True),
+    (1, 37, 129, 1536, 64, False), (1, 300, 300, 1536, 64, True)]
+RANK_CASES = [  # (b, w, d, k, n), then every RANK_WIDTHS x k in {1, 10, w}
+    (5, 300, 37, 10, 500), (3, 17, 100, 17, 40), (4, 130, 8, 7, 1000),
+    (9, 1, 3, 1, 5)]
+RANK_WIDTHS = (1, 31, 33, 384, 4096)
+RANK_DIMS = (3, 100, 1536)
 SWAP_CASES = [  # (G, g, k): g = 300 is ragged against the 64-column tile
     (3, 50, 7), (2, 256, 128), (1, 33, 1), (5, 100, 50), (2, 300, 64),
     (3, 300, 1)]
@@ -106,6 +136,9 @@ KERNELS = {
 }
 BEAM_PATH_KERNELS = ("pairwise", "rank", "knn", "swap_deltas")  # phase 3
 STORE_PATH_KERNELS = ("scan", "rank")  # the two-stage call
+KERNEL_SYMBOLS = ("pairwise_kernel", "rank_kernel", "knn_kernel",
+                  "knn_stream_kernel", "knn_merge_kernel", "swap_order_kernel",
+                  "swap_kernel", "scan_kernel")
 STORE_BLOCK = 256  # bench_store.py's full-run block size
 RERANK_WIDTH = 128  # Query's default rerank_width
 SCAN_FORMATS = {"int8": "dense", "fp16": "dense", "int4": "int4",
@@ -173,6 +206,10 @@ def topk_agree(kd, ki, rd, ri, recomputed) -> float:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Time of one call of ``fn`` on the card's clock: CUDA events around
+    ``iters`` back-to-back calls after ``warmup``. Where the host takes
+    longer to enqueue a call than the card to run it, this measures the
+    host (``kernel_ms`` does not)."""
     import torch
 
     for _ in range(warmup):
@@ -186,6 +223,35 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int = 10, replays: int = 3) -> float:
+    """Device time of one call of a kernel wrapper ``fn``: ``iters`` calls
+    captured in a CUDA graph, CUDA events around ``replays`` replays, so no
+    host gap between launches is counted (the wrappers allocate with
+    ``torch.empty`` and launch on the current stream: both capture)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32
@@ -239,40 +305,27 @@ def phase_parity() -> dict:
     """Every kernel against its plain version on the card; returns the max
     error per kernel over the sweep."""
     import torch
-    from repro_torch.kernels import kmedoids as kmk, pairwise as pw
+    from repro_torch.kernels import kmedoids as kmk
     from repro_torch.kernels import ref, topk
 
     rng = np.random.default_rng(0)
     errs = {name: 0.0 for name in KERNELS}
 
     for form in ref.FORMS:
-        for G, m, n, d in [(1, 37, 91, 13), (3, 70, 65, 100), (1, 1, 129, 2),
-                           (2, 64, 64, 16)]:
-            X = _cuda(rng.normal(size=(G, m, d)).astype(np.float32))
-            Y = _cuda(rng.normal(size=(G, n, d)).astype(np.float32))
-            out = pw.pairwise_cuda(X, Y, form).cpu().numpy()
-            want = ref.pairwise_ref(X, Y, form).cpu().numpy()
-            errs["pairwise"] = max(errs["pairwise"], values_agree(
-                out, want, squared=form == "l2"))
-
-        for b, w, d, k, n in [(5, 300, 37, 10, 500), (3, 17, 100, 17, 40),
-                              (4, 130, 8, 7, 1000), (9, 1, 3, 1, 5)]:
-            Q = _cuda(rng.normal(size=(b, d)).astype(np.float32))
-            P = _cuda(rng.normal(size=(n, d)).astype(np.float32))
-            sq = (P * P).sum(-1)
-            idx = _cuda(rng.integers(0, n, size=(b, w)).astype(np.int32))
-            ok = _cuda(rng.random((b, w)) > 0.3)
-            ok[0] = False  # an all-masked row
-            kd, ks = topk.rank_cuda(Q, P, sq, idx, ok, k, form)
-            rd, rs = ref.rank_gathered_ref(Q, P, sq, idx, ok, k, form)
-            picked = torch.gather(idx, 1, ks.long())
-            again = ref.rowwise_ref(Q, P[picked.long()], form,
-                                    sq[picked.long()])
-            require(bool(((ks >= 0) & (ks < w)).all()), "rank slots outside [0, w)")
-            errs["rank"] = max(errs["rank"], topk_agree(
-                kd.cpu(), ks.cpu(), rd.cpu(), rs.cpu(), again.cpu()))
+        errs["pairwise"] = max(errs["pairwise"], parity_pairwise(rng, form))
+        errs["rank"] = max(errs["rank"], parity_rank(rng, form))
 
         for q, n, d, k in KNN_CASES:
+            Q = _cuda(rng.normal(size=(q, d)).astype(np.float32))
+            DB = _cuda(rng.normal(size=(n, d)).astype(np.float32))
+            errs["knn"] = max(errs["knn"], parity_knn(Q, DB, k, form))
+        # the streaming route: widths no query tile of the other route
+        # holds (l1 and chebyshev keep theirs to d = 1536), k past 1024,
+        # and the largest k the route admits
+        for q, n, d, k in KNN_STREAM_CASES + [(3, 12_000, 100, topk.knn_max_k())]:
+            if form not in ref.VPU_FORMS or d > 2000 or k > 1024:
+                require(topk.knn_geometry(q, n, d, k, form).route == "stream",
+                        f"knn {form} [{q}, {n}, {d}, {k}] does not stream")
             Q = _cuda(rng.normal(size=(q, d)).astype(np.float32))
             DB = _cuda(rng.normal(size=(n, d)).astype(np.float32))
             errs["knn"] = max(errs["knn"], parity_knn(Q, DB, k, form))
@@ -303,6 +356,82 @@ def phase_parity() -> dict:
     log(f"[parity] all kernels agree with their plain versions: "
         f"{json.dumps(errs)}")
     return errs
+
+
+def parity_pairwise(rng, form) -> float:
+    """The pairwise kernel against its plain version in one form: G = 1, 3
+    and a 1024-group build slab whose last group is part padding (zero
+    rows, as the build pads it); m and n of 1, 37, 129, 300; d = 1, 3, 13,
+    100 and 1536; X the same tensor as Y (the mirrored tiles) and not; a
+    repeat call that must be bit-identical; and integer-valued inputs
+    (|x| < 2^11, every sum below 2^24), where sqeuclidean must equal the
+    plain version bit for bit. Returns the max error."""
+    import torch
+    from repro_torch.kernels import pairwise as pw, ref
+
+    err = 0.0
+    for G, m, n, d, same in PAIRWISE_CASES:
+        X = _cuda(rng.normal(size=(G, m, d)).astype(np.float32))
+        if G == 1024:
+            X[-1, 100:] = 0.0  # the last group: 100 points and padding
+        Y = X if same else _cuda(rng.normal(size=(G, n, d)).astype(np.float32))
+        out = pw.pairwise_cuda(X, Y, form)
+        want = torch.cat([ref.pairwise_ref(X[i:i + 32], Y[i:i + 32], form)
+                          for i in range(0, G, 32)])  # slabs bound the l1 cube
+        err = max(err, values_agree(out.cpu().numpy(), want.cpu().numpy(),
+                                    squared=form == "l2"))
+        require(bool(torch.equal(out, pw.pairwise_cuda(X, Y, form))),
+                f"pairwise {form} {(G, m, n, d)} differs run to run")
+    if form == "sqeuclidean":
+        for G, m, n, d, hi, same in PAIRWISE_INT_CASES:
+            X = _cuda(rng.integers(-hi + 1, hi, size=(G, m, d)).astype(np.float32))
+            Y = X if same else _cuda(
+                rng.integers(-hi + 1, hi, size=(G, n, d)).astype(np.float32))
+            require(bool(torch.equal(pw.pairwise_cuda(X, Y, form),
+                                     ref.pairwise_ref(X, Y, form))),
+                    f"pairwise on integers {(G, m, n, d)} is not bit-equal")
+    return err
+
+
+def parity_rank(rng, form) -> float:
+    """The rank kernel against its plain version in one form: RANK_CASES,
+    then w = 1, 31, 33, 384 and 4096 with k = 1, 10 and w, d = 3, 100 and
+    1536; in each an all-masked row, one table row in two slots of a row
+    (the lower slot first) and a repeat call that must be bit-identical.
+    Returns the max error."""
+    import torch
+    from repro_torch.kernels import ref, topk
+
+    err = 0.0
+    grid = [(w, k) for w in RANK_WIDTHS for k in sorted({1, min(10, w), w})]
+    cases = RANK_CASES + [(6, w, RANK_DIMS[i % len(RANK_DIMS)], k, max(2 * w, 50))
+                          for i, (w, k) in enumerate(grid)]
+    for b, w, d, k, n in cases:
+        Q = _cuda(rng.normal(size=(b, d)).astype(np.float32))
+        P = _cuda(rng.normal(size=(n, d)).astype(np.float32))
+        sq = (P * P).sum(-1)
+        idx = _cuda(rng.integers(0, n, size=(b, w)).astype(np.int32))
+        ok = _cuda(rng.random((b, w)) > 0.3)
+        ok[0] = False  # an all-masked row
+        if w > 1:  # row 1: slots 0 and 1 hold one table row
+            idx[1, 1] = idx[1, 0]
+            ok[1, :2] = True
+            idx[1, 2:] = (idx[1, 0] + 1 + torch.arange(w - 2, device="cuda")) % n
+        kd, ks = topk.rank_cuda(Q, P, sq, idx, ok, k, form)
+        rd, rs = ref.rank_gathered_ref(Q, P, sq, idx, ok, k, form)
+        picked = torch.gather(idx, 1, ks.long())
+        again = ref.rowwise_ref(Q, P[picked.long()], form, sq[picked.long()])
+        require(bool(((ks >= 0) & (ks < w)).all()), "rank slots outside [0, w)")
+        err = max(err, topk_agree(kd.cpu(), ks.cpu(), rd.cpu(), rs.cpu(),
+                                  again.cpu()))
+        kd2, ks2 = topk.rank_cuda(Q, P, sq, idx, ok, k, form)
+        require(bool(torch.equal(kd, kd2) and torch.equal(ks, ks2)),
+                f"rank {form} w={w} k={k} differs run to run")
+        if w > 1:
+            row = ks[1].tolist()
+            require(1 not in row or (0 in row and row.index(0) < row.index(1)),
+                    f"rank {form} w={w} k={k}: slot 1 before its twin slot 0")
+    return err
 
 
 def parity_knn(Q, DB, k, form, src=None) -> float:
@@ -383,6 +512,68 @@ def parity_scan(rng) -> float:
                 require(bool(torch.equal(kd, kd2) and torch.equal(ks, ks2)),
                         f"scan {form}/{backend} differs run to run")
     return err
+
+
+def phase_build_parity(data: np.ndarray) -> dict:
+    """The card's build against the port's CPU build. Integer-valued
+    dense_embed-shaped data (the first 20,000 rows scaled to integers in
+    [0, 64): every Gram sum is exact in fp32, so both devices compute the
+    same distances), gl = 256, euclidean, pam, no shuffle: the level sizes
+    and every level's arrays (the medoids' slots, parents and children)
+    must be equal, and the level TDs within rtol 1e-6 (sums of the same
+    distances in another order). Then a real-valued 50,000-row slice of
+    the main data: level-0 TD within 1% (rounding-level near-ties in
+    k-medoids may go the other way). Also ``core.build_index`` called
+    without a device must build on CUDA."""
+    import torch
+    from repro_torch.core.index import PDASCIndex
+
+    x = data[:20_000]
+    lo, hi = float(x.min()), float(x.max())
+    xi = np.clip(np.round((x - lo) / (hi - lo) * 63), 0, 63).astype(np.float32)
+    kw = dict(gl=256, distance="euclidean", method="pam", shuffle=False)
+    t0 = time.perf_counter()
+    card = PDASCIndex.build(xi, device="cuda", **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = PDASCIndex.build(xi, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    require(card.stats.level_sizes == cpu.stats.level_sizes,
+            f"integer build: level sizes {card.stats.level_sizes} on the card, "
+            f"{cpu.stats.level_sizes} on the CPU")
+    for l, (a, b) in enumerate(zip(card.data.levels, cpu.data.levels)):
+        for f in a._fields:
+            require(bool(torch.equal(getattr(a, f).cpu(), getattr(b, f))),
+                    f"integer build: level {l} {f} differs card vs CPU")
+    require(bool(torch.equal(card.data.leaf_ids.cpu(), cpu.data.leaf_ids)),
+            "integer build: leaf ids differ card vs CPU")
+    np.testing.assert_allclose(card.stats.level_td, cpu.stats.level_td,
+                               rtol=1e-6)
+    log(f"[build-parity] integer dense_embed n={len(xi)} gl=256 euclidean "
+        f"pam: card == CPU level by level, levels {card.stats.level_sizes}, "
+        f"TD {[round(t, 3) for t in card.stats.level_td]} (card {card_s:.2f} "
+        f"s, CPU {cpu_s:.2f} s)")
+
+    # the build's core entry point without a device runs on the card
+    from repro_torch.core import build_index
+
+    index, _ = build_index(xi[:2000], gl=256, distance="euclidean")
+    require(all(lv.points.is_cuda for lv in index.levels),
+            "core.build_index without a device did not build on CUDA")
+    log(f"[build-parity] core.build_index without a device: built on "
+        f"{index.levels[0].points.device}")
+
+    real = data[:50_000]
+    kw = dict(gl=256, distance="euclidean", method="pam", radius_quantile=0.35)
+    card = PDASCIndex.build(real, device="cuda", **kw)
+    cpu = PDASCIndex.build(real, device="cpu", **kw)
+    td_card, td_cpu = card.stats.level_td[0], cpu.stats.level_td[0]
+    rel = abs(td_card - td_cpu) / td_cpu
+    log(f"[build-parity] real-valued n={len(real)}: level-0 TD card "
+        f"{td_card:.6f}, CPU {td_cpu:.6f} (rel {rel:.3g}, limit 0.01)")
+    require(rel <= 0.01, f"level-0 TD differs by {rel:.3g} card vs CPU")
+    return dict(int_card_s=card_s, int_cpu_s=cpu_s, real_td_rel=rel)
 
 
 def phase_main_path(data: np.ndarray, test: np.ndarray) -> dict:
@@ -484,7 +675,13 @@ def profile_breakdown(label: str, fn) -> dict:
     if busy_ms == 0:  # CUPTI gave no device activity: the share is unknown
         log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy share "
             f"not measured (the profiler saw no device time)")
-        return dict(wall_ms=wall_ms, busy_ms=None)
+        return dict(wall_ms=wall_ms, busy_ms=None, kernels={})
+    # the port's kernels by their symbols: device ms and launches in the call
+    kernels = {}
+    for sym in KERNEL_SYMBOLS:
+        hits = [e for e in events if sym in e.key]
+        kernels[sym] = (sum(_device_us(e) for e in hits) / 1e3,
+                        sum(e.count for e in hits))
     top = sorted(events, key=_device_us, reverse=True)[:6]
     log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of wall, idle "
@@ -492,7 +689,8 @@ def profile_breakdown(label: str, fn) -> dict:
     for e in top:
         log(f"[profile]   {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms)
+    log(f"[profile]   the port's kernels (ms, launches): {json.dumps(kernels)}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=kernels)
 
 
 def phase_cpu_check(main: dict) -> None:
@@ -523,13 +721,14 @@ def phase_cpu_check(main: dict) -> None:
 
 
 def phase_profile(data: np.ndarray, main: dict) -> None:
-    """Device busy share and top ops of one search call and one build."""
+    """Device busy share and top ops of one search call and one build; the
+    search's profile is kept in ``main`` (its rank launches' sum)."""
     from repro_torch.core.index import PDASCIndex
     from repro_torch.query import Query
 
     plan = main["idx"].plan(Query(k=10))
-    profile_breakdown(f"search {N_QUERIES} queries, beam 32",
-                      lambda: plan(main["Qc"]))
+    main["search_profile"] = profile_breakdown(
+        f"search {N_QUERIES} queries, beam 32", lambda: plan(main["Qc"]))
     profile_breakdown(
         f"build n={data.shape[0]}",
         lambda: PDASCIndex.build(data, gl=256, distance="euclidean",
@@ -560,17 +759,36 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
             f"ms, library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), max abs err {err:.3g}")
 
-    # pairwise: one build slab of level 0 (group_chunk groups of 256, d=100)
+    # pairwise: one build slab of level 0 (group_chunk groups of 256, d=100);
+    # X is Y, as in the build
     G, g, d = GROUP_CHUNK, 256, data.shape[1]
     X = _cuda(data[:G * g].reshape(G, g, d))
     out = pw.pairwise_cuda(X, X, "l2")
     want = ref.pairwise_ref(X, X, "l2")
     err = values_agree(out.cpu().numpy(), want.cpu().numpy(), squared=True)
     row("pairwise", [G, g, g, d],
-        time_ms(lambda: pw.pairwise_cuda(X, X, "l2")),
+        kernel_ms(lambda: pw.pairwise_cuda(X, X, "l2")),
         time_ms(lambda: ref.pairwise_ref(X, X, "l2")),
         time_ms(lambda: torch.cdist(X, X)),
-        2.0 * G * g * g * d, 4.0 * (2 * G * g * d + G * g * g), err, PEAK_GRAM)
+        2.0 * G * g * g * d, 4.0 * (G * g * d + G * g * g), err, PEAK_GRAM)
+
+    # pairwise in l1 at the same shape: the CUDA-core route (one subtract
+    # and one add an element); the plain version in slabs of 32 groups
+    def plain_l1():
+        return torch.cat([ref.pairwise_ref(X[i:i + 32], X[i:i + 32], "l1")
+                          for i in range(0, G, 32)])
+
+    err = values_agree(pw.pairwise_cuda(X, X, "l1").cpu().numpy(),
+                       plain_l1().cpu().numpy())
+    b_ms, b_by = bound(2.0 * G * g * g * d, 4.0 * (G * g * d + G * g * g))
+    l1 = dict(ms=kernel_ms(lambda: pw.pairwise_cuda(X, X, "l1")),
+              plain_ms=time_ms(plain_l1, iters=2, warmup=1),
+              library_ms=time_ms(lambda: torch.cdist(X, X, p=1), iters=3),
+              bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    rows[-1]["l1"] = l1
+    log(f"[time] pairwise l1 [{G}, {g}, {g}, {d}]: kernel {l1['ms']:.4f} ms, "
+        f"plain {l1['plain_ms']:.4f} ms, library {l1['library_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), max abs err {err:.3g}")
 
     # swap_deltas: the first sweep of that slab (pruned BUILD medoids)
     k = g // 2
@@ -581,7 +799,7 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
     err = values_agree(sw.cpu().numpy(),
                        ref.swap_deltas_ref(out, d1, d2, n1, valid, k).cpu().numpy())
     row("swap_deltas", [G, g, k],
-        time_ms(lambda: kmk.swap_deltas_cuda(out, d1, d2, n1, valid, k)),
+        kernel_ms(lambda: kmk.swap_deltas_cuda(out, d1, d2, n1, valid, k)),
         time_ms(lambda: ref.swap_deltas_ref(out, d1, d2, n1, valid, k)),
         None, 7.0 * G * g * g,
         4.0 * G * g * g + 13.0 * G * g + 4.0 * G * k * g, err)
@@ -601,13 +819,29 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
     again = ref.rowwise_ref(Qc, leaf.points[picked], "l2", leaf.sq_norm[picked])
     err = topk_agree(kd.cpu(), ks.cpu(), rd.cpu(), rs.cpu(), again.cpu())
     n_ok = int(cand_ok.sum())
+
+    def library_rank():  # gather, cdist, mask, top-k: PyTorch calls
+        C = leaf.points[cand_idx.long()]
+        D = torch.cdist(Qc[:, None], C).squeeze(1).masked_fill(~cand_ok, BIG)
+        return torch.topk(D, 10, largest=False)
+
     row("rank", [b, w, d, 10],
-        time_ms(lambda: topk.rank_cuda(Qc, leaf.points, leaf.sq_norm, cand_idx,
-                                       cand_ok, 10, "l2")),
+        kernel_ms(lambda: topk.rank_cuda(Qc, leaf.points, leaf.sq_norm, cand_idx,
+                                         cand_ok, 10, "l2")),
         time_ms(lambda: ref.rank_gathered_ref(Qc, leaf.points, leaf.sq_norm,
                                               cand_idx, cand_ok, 10, "l2")),
-        None, 2.0 * n_ok * d,
+        time_ms(library_rank), 2.0 * n_ok * d,
         4.0 * b * d + n_ok * (4.0 * d + 4) + 5.0 * b * w + 8.0 * b * 10, err)
+    rows[-1]["event_ms"] = time_ms(lambda: topk.rank_cuda(
+        Qc, leaf.points, leaf.sq_norm, cand_idx, cand_ok, 10, "l2"))
+    # what one beam search pays: its rank launches, from the profile
+    prof = main.get("search_profile", {}).get("kernels", {})
+    ms, count = prof.get("rank_kernel", (None, 0))
+    rows[-1].update(per_search_ms=ms, per_search_launches=count)
+    log(f"[time] rank by CUDA events around back-to-back calls (host gaps "
+        f"included): {rows[-1]['event_ms']:.4f} ms")
+    log(f"[time] rank over one beam search: {count} launches, "
+        f"{'not measured' if ms is None else f'{ms:.4f} ms'} (profile)")
 
     # knn: exact_knn's call, 1000 queries against the whole dataset
     DB = _cuda(data)
@@ -619,7 +853,7 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
     nq, n = Qc.shape[0], DB.shape[0]
     flops, nbytes = 2.0 * nq * n * d, 4.0 * (nq * d + n * d) + 8.0 * nq * 10
     row("knn", [nq, n, d, 10],
-        time_ms(lambda: topk.knn_cuda(Qc, DB, 10, "l2"), iters=5),
+        kernel_ms(lambda: topk.knn_cuda(Qc, DB, 10, "l2"), iters=5),
         time_ms(lambda: ref.knn_ref(Qc, DB, 10, "l2"), iters=2, warmup=1),
         time_ms(lambda: torch.topk(torch.cdist(Qc, DB), 10, largest=False),
                 iters=2, warmup=1),
@@ -637,7 +871,7 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
     err = topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu())
     del rd, ri
     b_ms, b_by = bound(flops, nbytes)
-    l1 = dict(ms=time_ms(lambda: topk.knn_cuda(Qc, DB, 10, "l1"), iters=3),
+    l1 = dict(ms=kernel_ms(lambda: topk.knn_cuda(Qc, DB, 10, "l1"), iters=3),
               plain_ms=time_ms(plain_l1, iters=1, warmup=0),
               library_ms=time_ms(lambda: torch.topk(
                   torch.cdist(Qc, DB, p=1), 10, largest=False),
@@ -647,6 +881,36 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
     log(f"[time] knn l1 [{nq}, {n}, {d}, 10]: kernel {l1['ms']:.4f} ms, "
         f"plain {l1['plain_ms']:.4f} ms, library {l1['library_ms']:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}), max abs err {err:.3g}")
+    del DB, kd, ki, again
+
+    # knn's streaming route: a 1536-d table (a text-embedding width) that
+    # no wgmma query tile holds; normal data from a seed, made on the card
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    nq, n, d = KNN_STREAM_SHAPE
+    Q2 = torch.randn((nq, d), device="cuda", generator=gen)
+    DB2 = torch.randn((n, d), device="cuda", generator=gen)
+    require(topk.knn_geometry(nq, n, d, 10, "l2").route == "stream",
+            "the 1536-d knn does not take the streaming route")
+    kd, ki = topk.knn_cuda(Q2, DB2, 10, "l2")
+    rd, ri = ref.knn_ref(Q2, DB2, 10, "l2")
+    err = topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(),
+                     ref.rowwise_ref(Q2, DB2[ki.long()], "l2").cpu())
+    b_ms, b_by = bound(2.0 * nq * n * d, 4.0 * (nq * d + n * d) + 8.0 * nq * 10,
+                       PEAK_GRAM)
+    stream = dict(shape=[nq, n, d, 10],
+                  ms=kernel_ms(lambda: topk.knn_cuda(Q2, DB2, 10, "l2"), iters=2,
+                               replays=2),
+                  plain_ms=time_ms(lambda: ref.knn_ref(Q2, DB2, 10, "l2"),
+                                   iters=2, warmup=1),
+                  library_ms=time_ms(lambda: torch.topk(
+                      torch.cdist(Q2, DB2), 10, largest=False), iters=2,
+                      warmup=1),
+                  bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    rows[-1]["stream"] = stream
+    log(f"[time] knn stream {stream['shape']} l2: kernel {stream['ms']:.4f} "
+        f"ms, plain {stream['plain_ms']:.4f} ms, library "
+        f"{stream['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max "
+        f"abs err {err:.3g}")
     return rows
 
 
@@ -787,6 +1051,11 @@ def phase_scan_timing(main: dict, store: dict) -> dict:
                                          cand_idx, cand_ok, RERANK_WIDTH,
                                          "l2", fmt)
 
+        def library():  # dequantised gathered rows, cdist, mask, top-k
+            C = ref.dequantize_rows(codes, scales, STORE_BLOCK, cand_idx, fmt, d)
+            D = torch.cdist(Qc[:, None], C).squeeze(1).masked_fill(~cand_ok, BIG)
+            return torch.topk(D, RERANK_WIDTH, largest=False)
+
         kd, ks = kernel()
         rd, rs = plain()
         again = torch.gather(scan_rows(Qc, codes, scales, STORE_BLOCK,
@@ -797,13 +1066,15 @@ def phase_scan_timing(main: dict, store: dict) -> dict:
                   + 8.0 * b * RERANK_WIDTH)
         b_ms, b_by = bound(5.0 * n_ok * d, nbytes)
         formats[backend] = dict(
-            ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=b_ms,
-            bound_by=b_by, max_abs_err=err, bytes_per_row=row_bytes)
+            ms=kernel_ms(kernel), event_ms=time_ms(kernel), plain_ms=time_ms(plain),
+            library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, bytes_per_row=row_bytes)
         f = formats[backend]
         log(f"[time] scan {backend} [{b}, {w}, d={d}, k={RERANK_WIDTH}] "
-            f"({n_ok} unmasked): kernel {f['ms']:.4f} ms, plain "
-            f"{f['plain_ms']:.4f} ms, library None, bound {b_ms:.4f} ms "
-            f"({b_by}), max abs err {err:.3g}")
+            f"({n_ok} unmasked): kernel {f['ms']:.4f} ms (events "
+            f"{f['event_ms']:.4f}), plain "
+            f"{f['plain_ms']:.4f} ms, library {f['library_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), max abs err {err:.3g}")
     src, rep = KERNELS["scan"]
     main8 = formats["int8"]
     return dict(name="scan", route="cuda", source=src, replaces=rep,
@@ -811,7 +1082,7 @@ def phase_scan_timing(main: dict, store: dict) -> dict:
                 max_abs_err=max(f["max_abs_err"] for f in formats.values()),
                 ms=main8["ms"], plain_ms=main8["plain_ms"],
                 bound_ms=main8["bound_ms"], bound_by=main8["bound_by"],
-                library_ms=None, shape=[b, w, d, RERANK_WIDTH],
+                library_ms=main8["library_ms"], shape=[b, w, d, RERANK_WIDTH],
                 formats=formats)
 
 
@@ -895,6 +1166,7 @@ def main() -> int:
     full = make_dataset("dense_embed", n=N_MAIN + N_QUERIES, seed=0)
     data, test = full[:N_MAIN], full[N_MAIN:]
     log(f"[main] data made in {time.perf_counter() - t0:.1f} s (set-up)")
+    phase_build_parity(data)
     main_run = phase_main_path(data, test)
     phase_cpu_check(main_run)
     phase_profile(data, main_run)

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core import distances as dist_lib
 from repro_torch.core import kmedoids as km
 from repro_torch.kernels import ops as kops
@@ -264,9 +265,10 @@ def build_index_arrays(
     distance="euclidean", method: str = "pam", max_swaps: int = 64,
     generator: Optional[torch.Generator] = None, row_chunk: int = 512,
     group_chunk: int = 8, swap_tol: float = 1e-3, shuffle: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> tuple[PDASCIndexData, tuple[Tensor, ...]]:
-    """MSA build: the index + per-level TD scalars (on ``device``).
+    """MSA build: the index + per-level TD scalars (on ``device``: CUDA
+    unless ``device="cpu"``; raises when CUDA is asked for and absent).
 
     ``generator`` (a CPU ``torch.Generator``, seed 0 when omitted) draws
     the shuffle; ``shuffle=False`` draws nothing. ``group_chunk`` bounds the
@@ -281,7 +283,7 @@ def build_index_arrays(
     if dist.needs_dim is not None and d != dist.needs_dim:
         raise ValueError(
             f"distance {dist.name!r} needs d={dist.needs_dim}, got {d}")
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if not isinstance(data, Tensor):
         data = torch.from_numpy(np.asarray(data, np.float32))
     data = data.to(dev, torch.float32)

@@ -150,6 +150,31 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Rows [r0, r0 + ROWS) of A[rows, d] (zero past `rows`), columns
+// [c0, c0 + w) (zero past d) into st[ROWS][STRIDE] by cp.async, NTHREADS
+// threads; 16-byte copies where every row starts 16-byte aligned. w is a
+// multiple of 8.
+template <int ROWS, int STRIDE, int NTHREADS>
+__device__ __forceinline__ void load_rows(float* st, const float* A, int r0, int rows,
+                                          int d, int c0, int w) {
+  if ((d & 3) == 0 && ((size_t)A & 15) == 0) {
+    const int per = w / 4;
+    for (int e = threadIdx.x; e < ROWS * per; e += NTHREADS) {
+      const int r = e / per, c = 4 * (e % per), gr = r0 + r;
+      const bool ok = gr < rows && c0 + c < d;
+      cp_async16(st + r * STRIDE + c, ok ? A + (size_t)gr * d + c0 + c : A, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * w; e += NTHREADS) {
+      const int r = e / w, c = e % w, gr = r0 + r;
+      const bool ok = gr < rows && c0 + c < d;
+      cp_async4(st + r * STRIDE + c, ok ? A + (size_t)gr * d + c0 + c : A, ok);
+    }
+  }
+}
+
+constexpr size_t SMEM_MAX = 232448;  // shared memory one block may use on Hopper
+
 inline cudaError_t set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

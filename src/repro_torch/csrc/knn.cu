@@ -52,12 +52,18 @@
 //   retried after the merge against the new k-th; a value that did not
 //   beat the k-th never will. l2 ranks by d^2 there and takes the square
 //   root only of values that may enter.
+// - Shapes no query tile of this route holds (d + k past ~1,230 for the
+//   Gram forms, k past 1024) take the streaming route at the end of this
+//   file: Q and DB both stream in d-slices, so any d; its query tile
+//   shrinks with k (16 down to 1), and k is bounded only by one query's
+//   state and the merge kernel's (6k floats of shared memory: k <= 9,685).
 // - What holds it back (PERF.md; tools/knn_phases.py): the products alone
 //   take ~60% of the kernel's time at ~45% of the 3xTF32 bound; waits on
 //   the ring, merges and the tile's barrier take most of the rest.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace pdasc;
 
@@ -70,7 +76,6 @@ constexpr int STAGES = 2;        // double buffer
 constexpr int CAP = 32;          // candidate slots per query: one per lane in a merge
 constexpr int THREADS = 256, NWARPS = THREADS / 32;  // two warpgroups
 constexpr int MERGE_THREADS = 128;
-constexpr size_t SMEM_MAX = 232448;  // what one block may use on Hopper
 
 __host__ __device__ constexpr bool is_gram(int form) { return form <= DOT; }
 
@@ -81,159 +86,6 @@ size_t smem_bytes(int bq, int d, int k, bool gram) {
   const size_t dpad = (size_t)(d + 7) / 8 * 8;
   return 4 * ((gram ? 2 * dpad : dpad + 4) * bq + (size_t)STAGES * TN * BS +
               2 * (size_t)bq * k + 2 * (size_t)bq * CAP + 5 * (size_t)bq + 2);
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// Four 8 x 4 fp32 matrices from shared memory (an 8 x 8 b16 ldmatrix each);
-// lane l gives the row address of matrix l / 8, row l % 8, and receives
-// element (l / 4, l % 4) of each matrix: the TF32 MMA fragment layout.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// ---- wgmma (sm_90a): D[64 x N] += A[64 x 8] (registers) * B[N x 8] -------
-// A is the mma.m16n8k8 TF32 fragment of each warp's 16 rows; B is read from
-// shared memory through a descriptor: K-major, no swizzle, 8 x 4 core
-// matrices of 128 contiguous bytes, LBO = 128 B between core matrices along
-// K, SBO between 8-row groups. D is per warp the m16n8 accumulator layout,
-// 4 floats for each 8 columns.
-__device__ __forceinline__ uint64_t kmajor_desc(const float* p, uint32_t sbo) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Registers an asynchronous wgmma reads or writes: the compiler must keep
-// them as they are until the wait that follows.
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void keep(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  __device__ __forceinline__ static void run(float (&d)[8], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  __device__ __forceinline__ static void run(float (&d)[16], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void run(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  __device__ __forceinline__ static void run(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-
-// Rows [r0, r0 + TN) of DB (zero past n1), columns [c0, c0 + w) (zero past
-// d) into one ring stage. w is a multiple of 8.
-__device__ __forceinline__ void load_stage(float* st, const float* DB, int r0, int n1,
-                                           int d, int c0, int w) {
-  if ((d & 3) == 0) {
-    const int per = w / 4;
-    for (int e = threadIdx.x; e < TN * per; e += THREADS) {
-      const int r = e / per, c = 4 * (e % per), gr = r0 + r;
-      const bool ok = gr < n1 && c0 + c < d;
-      cp_async16(st + r * BS + c, ok ? DB + (size_t)gr * d + c0 + c : DB, ok);
-    }
-  } else {
-    for (int e = threadIdx.x; e < TN * w; e += THREADS) {
-      const int r = e / w, c = e % w, gr = r0 + r;
-      const bool ok = gr < n1 && c0 + c < d;
-      cp_async4(st + r * BS + c, ok ? DB + (size_t)gr * d + c0 + c : DB, ok);
-    }
-  }
 }
 
 // l2 ranks by d^2 until a value may enter: sqrt is monotone and correctly
@@ -370,8 +222,8 @@ knn_kernel(const float* __restrict__ Q, const float* __restrict__ DB,
   auto issue = [&](int s) {
     if (s < steps) {
       const int c0 = (s % nch) * BK;
-      load_stage(ring + (s % STAGES) * TN * BS, DB, n0 + (s / nch) * TN, n1, d, c0,
-                 min(BK, dpad - c0));
+      load_rows<TN, BS, THREADS>(ring + (s % STAGES) * TN * BS, DB, n0 + (s / nch) * TN,
+                                 n1, d, c0, min(BK, dpad - c0));
     }
     cp_commit();  // empty groups keep the wait count uniform
   };
@@ -657,6 +509,141 @@ knn_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_
   }
 }
 
+// ---- the streaming route: any d, k up to what one query's state holds ------
+// This file's first design, in fp32, with the query tile a template
+// parameter: a block owns BQ queries and one split of the DB, stages Q and
+// the split's rows through shared memory STREAM_BK columns of d at a time
+// (so no row of either is held whole), computes the BQ x STREAM_TN
+// distance tile in fp32 register micro-tiles, and merges each query's row
+// into its top-k state in shared memory by rank (merge_tile). Taken where
+// the wgmma route's whole-row query tile or its states do not fit
+// (knn_geometry).
+constexpr int STREAM_TN = 128;  // DB rows per tile
+constexpr int STREAM_BK = 32;   // columns of d per stage
+
+template <int FORM, int BQ>
+__global__ void __launch_bounds__(THREADS)
+knn_stream_kernel(const float* __restrict__ Q, const float* __restrict__ DB,
+                  const float* __restrict__ qq, const float* __restrict__ dd,
+                  float* __restrict__ part_d, int* __restrict__ part_i, int nq, int n,
+                  int d, int k, int chunk) {
+  constexpr int RQ = (BQ + 7) / 8;  // queries a thread: rows ty + 8 i
+  extern __shared__ __align__(16) float smem[];
+  float* sd = smem;                      // [BQ * k] per-query states
+  int* si = (int*)(sd + BQ * k);         // [BQ * k]
+  float* nd = (float*)(si + BQ * k);     // [k] merge scratch
+  int* ni = (int*)(nd + k);              // [k]
+  __shared__ float Qs[STREAM_BK][BQ];
+  __shared__ float Ds[STREAM_BK][STREAM_TN + 1];
+  __shared__ float Dt[BQ][STREAM_TN];
+  __shared__ int tile_id[STREAM_TN];
+
+  constexpr bool NORMS = FORM == SQEUCLIDEAN || FORM == L2 || FORM == COSINE;
+  const int q0 = blockIdx.x * BQ;
+  const int split = blockIdx.y;
+  const int n0 = split * chunk;
+  const int n1 = min(n, n0 + chunk);
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const bool active = BQ >= 8 || ty < BQ;  // warp-uniform
+  for (int r = 0; r < BQ; ++r) init_state(sd + r * k, si + r * k, k);
+
+  for (int c0 = n0; c0 < n1; c0 += STREAM_TN) {
+    float acc[RQ][4];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int k0 = 0; k0 < d; k0 += STREAM_BK) {
+      for (int e = threadIdx.x; e < BQ * STREAM_BK; e += THREADS) {
+        const int r = e / STREAM_BK, c = e % STREAM_BK, gq = q0 + r, gc = k0 + c;
+        Qs[c][r] = (gq < nq && gc < d) ? Q[(size_t)gq * d + gc] : 0.0f;
+      }
+      for (int e = threadIdx.x; e < STREAM_TN * STREAM_BK; e += THREADS) {
+        const int r = e / STREAM_BK, c = e % STREAM_BK, gn = c0 + r, gc = k0 + c;
+        Ds[c][r] = (gn < n1 && gc < d) ? DB[(size_t)gn * d + gc] : 0.0f;
+      }
+      __syncthreads();
+      if (active) {
+#pragma unroll 8
+        for (int kk = 0; kk < STREAM_BK; ++kk) {
+          float a[RQ], b[4];
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) a[i] = Qs[kk][ty + 8 * i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j] = Ds[kk][tx + 32 * j];
+#pragma unroll
+          for (int i = 0; i < RQ; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = accumulate<FORM>(acc[i][j], a[i], b[j]);
+        }
+      }
+      __syncthreads();
+    }
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const int r = ty + 8 * i, gq = q0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 32 * j, gn = c0 + c;
+          float v = INFINITY;
+          if (gq < nq && gn < n1)
+            v = finish<FORM>(acc[i][j], NORMS ? qq[gq] : 0.0f, NORMS ? dd[gn] : 0.0f);
+          Dt[r][c] = v;
+        }
+      }
+    }
+    if (threadIdx.x < STREAM_TN) {
+      const int gn = c0 + (int)threadIdx.x;
+      tile_id[threadIdx.x] = gn < n1 ? gn : INT_MAX;
+    }
+    __syncthreads();
+    for (int r = 0; r < BQ && q0 + r < nq; ++r)
+      merge_tile(sd + r * k, si + r * k, nd, ni, Dt[r], tile_id, STREAM_TN, k);
+    __syncthreads();
+  }
+  for (int r = 0; r < BQ && q0 + r < nq; ++r) {
+    for (int i = threadIdx.x; i < k; i += THREADS) {
+      const size_t o = ((size_t)split * nq + q0 + r) * k + i;
+      const bool real = si[r * k + i] >= 0;  // an init entry holds no DB row
+      part_d[o] = real ? sd[r * k + i] : INFINITY;
+      part_i[o] = real ? si[r * k + i] : INT_MAX;
+    }
+  }
+}
+
+template <int FORM, int BQ>
+int launch_stream_tile(const float* Q, const float* DB, const float* qq, const float* dd,
+                       float* pd, int* pi, int nq, int n, int d, int k, int chunk,
+                       int splits, cudaStream_t s) {
+  const size_t smem = sizeof(float) * (2 * (size_t)BQ * k + 2 * (size_t)k);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, (const void*)knn_stream_kernel<FORM, BQ>);
+  if (err != cudaSuccess) return (int)err;
+  if (smem + attr.sharedSizeBytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute((const void*)knn_stream_kernel<FORM, BQ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nq + BQ - 1) / BQ, splits);
+  knn_stream_kernel<FORM, BQ><<<grid, THREADS, smem, s>>>(Q, DB, qq, dd, pd, pi, nq, n,
+                                                          d, k, chunk);
+  return 0;
+}
+
+template <int FORM>
+int launch_stream(int bq, const float* Q, const float* DB, const float* qq,
+                  const float* dd, float* pd, int* pi, int nq, int n, int d, int k,
+                  int chunk, int splits, cudaStream_t s) {
+  switch (bq) {
+    case 16: return launch_stream_tile<FORM, 16>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk, splits, s);
+    case 8: return launch_stream_tile<FORM, 8>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk, splits, s);
+    case 4: return launch_stream_tile<FORM, 4>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk, splits, s);
+    case 2: return launch_stream_tile<FORM, 2>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk, splits, s);
+    case 1: return launch_stream_tile<FORM, 1>(Q, DB, qq, dd, pd, pi, nq, n, d, k, chunk, splits, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int FORM, int BQ>
 int launch_tile(const float* Q, const float* DB, const float* qq, const float* dd,
                 float* pd, int* pi, int nq, int n, int d, int k, int chunk, int splits,
@@ -688,18 +675,21 @@ int launch(int bq, const float* Q, const float* DB, const float* qq, const float
 
 // Q[nq,d], DB[n,d] fp32; qq[nq], dd[n] fp32 norm scratch (Gram forms other
 // than dot); part_d/part_i[splits,nq,k] scratch; out dists[nq,k] fp32,
-// ids[nq,k] int32. Split s covers DB rows [s*chunk, min(n,(s+1)*chunk));
-// bq (128, 64, 32 or 16) queries per block.
+// ids[nq,k] int32. Split s covers DB rows [s*chunk, min(n,(s+1)*chunk)).
+// route 0: the wgmma route, bq (128, 64, 32 or 16) queries per block;
+// route 1: the streaming route, bq (16, 8, 4, 2 or 1).
 extern "C" int knn_launch(const void* Q, const void* DB, void* qq, void* dd,
                           void* part_d, void* part_i, void* out_d, void* out_i,
                           int nq, int n, int d, int k, int chunk, int splits, int bq,
-                          int form, void* stream) {
+                          int route, int form, void* stream) {
   cudaGetLastError();
   if (nq <= 0) return 0;
   if (k < 1 || k > n || d < 1 || chunk < 1 || splits < 1 ||
       (long long)chunk * splits < n || (long long)chunk * (splits - 1) >= n ||
-      splits > 65535)
+      splits > 65535 || (route != 0 && route != 1))
     return (int)cudaErrorInvalidValue;
+  const size_t msmem = sizeof(float) * 6 * (size_t)k;
+  if (msmem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* q = (const float*)Q;
   const float* db = (const float*)DB;
@@ -712,17 +702,20 @@ extern "C" int knn_launch(const void* Q, const void* DB, void* qq, void* dd,
   float* pd = (float*)part_d;
   int* pi = (int*)part_i;
   int err = 0;
+#define PDASC_KNN(F)                                                             \
+  err = route == 0 ? launch<F>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s) \
+                   : launch_stream<F>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s)
   switch (form) {
-    case SQEUCLIDEAN: err = launch<SQEUCLIDEAN>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case L2: err = launch<L2>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case COSINE: err = launch<COSINE>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case DOT: err = launch<DOT>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case L1: err = launch<L1>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
-    case CHEBYSHEV: err = launch<CHEBYSHEV>(bq, q, db, a, b, pd, pi, nq, n, d, k, chunk, splits, s); break;
+    case SQEUCLIDEAN: PDASC_KNN(SQEUCLIDEAN); break;
+    case L2: PDASC_KNN(L2); break;
+    case COSINE: PDASC_KNN(COSINE); break;
+    case DOT: PDASC_KNN(DOT); break;
+    case L1: PDASC_KNN(L1); break;
+    case CHEBYSHEV: PDASC_KNN(CHEBYSHEV); break;
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PDASC_KNN
   if (err) return err;
-  const size_t msmem = sizeof(float) * 6 * (size_t)k;
   cudaError_t e = set_smem((const void*)knn_merge_kernel, msmem);
   if (e != cudaSuccess) return (int)e;
   knn_merge_kernel<<<nq, MERGE_THREADS, msmem, s>>>(pd, pi, (float*)out_d, (int*)out_i,

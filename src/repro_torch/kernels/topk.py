@@ -26,25 +26,69 @@ rank_launches = 0  # launches since the last ops.reset_launch_counts()
 knn_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_RANK = {"rank_launch": [_P] * 7 + [_I] * 6 + [_P]}
-_KNN = {"knn_launch": [_P] * 8 + [_I] * 8 + [_P]}
+_RANK = {"rank_launch": [_P] * 7 + [_I] * 8 + [_P]}
+_KNN = {"knn_launch": [_P] * 8 + [_I] * 9 + [_P]}
 
 _SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
-_RANK_TILE = 128  # candidates per tile in rank.cu
-_KNN_MAX_K = 1024
+_RANK_CAP, _RANK_RING = 64, 64  # buffer entries, ring entries a warp (rank.cu)
+_RANK_THREADS = 256  # at most, a block of rank.cu
+_RANK_MAX_WARPS = _RANK_THREADS // 32
+_KNN_WGMMA_MAX_K = 1024
 _KNN_TILES = (16, 32, 64, 128)  # knn.cu's query tiles (a template parameter)
 _KNN_TN, _KNN_BK, _KNN_STAGES, _KNN_CAP = 128, 64, 2, 32  # as in knn.cu
+_KNN_STREAM_TILES = (1, 2, 4, 8, 16)  # the streaming route's query tiles
+_KNN_STREAM_TN, _KNN_STREAM_BK = 128, 32  # as in knn.cu
+_KNN_STREAM_WAVES = 4  # blocks an SM of the streaming route (small smem)
 _KNN_MIN_SPLIT = 1024  # fewest DB rows a split is worth
 H100_SMS = 132
 
 
+class RankGeometry(NamedTuple):
+    """A ``rank.cu`` launch: ``wpq`` warps a query, ``qpb`` queries a
+    block, ``blocks`` blocks (block ``i`` ranks queries ``[i * qpb, (i +
+    1) * qpb)``; warp ``j`` of a query takes its 32-slot tiles ``j, j +
+    wpq, ...``)."""
+
+    wpq: int
+    qpb: int
+    blocks: int
+
+
+def rank_smem_bytes(d: int, k: int, wpq: int, qpb: int) -> int:
+    """Shared memory of one ``rank.cu`` block: per query its row (padded
+    to 4) and, per warp, a top-k state (k padded to 2), a CAP-entry buffer
+    and a ring of compacted candidates, each as value and id."""
+    warp = 2 * ((k + 1) // 2 * 2 + _RANK_CAP + _RANK_RING)
+    return 4 * qpb * (_cdiv(d, 4) * 4 + wpq * warp)
+
+
+def rank_geometry(b: int, d: int, w: int, k: int) -> RankGeometry:
+    """Four warps a query where ``w`` has four 32-slot tiles (else two or
+    one), as many queries as fill 8 warps; fewer queries a block, then
+    fewer warps a query, where the states would not fit."""
+    tiles = _cdiv(w, 32)
+    wpq = 4 if tiles >= 4 else 2 if tiles >= 2 else 1
+    qpb = _RANK_MAX_WARPS // wpq
+    while rank_smem_bytes(d, k, wpq, qpb) > _SMEM_LIMIT:
+        if qpb > 1:
+            qpb //= 2
+        elif wpq > 1:
+            wpq //= 2
+        else:
+            raise ValueError(f"rank_cuda: k={k} at d={d} exceeds shared memory")
+    return RankGeometry(wpq, qpb, _cdiv(b, qpb))
+
+
 class KnnGeometry(NamedTuple):
     """A ``knn.cu`` launch: ``bq`` queries per block, DB rows ``[s * chunk,
-    (s + 1) * chunk)`` for split ``s < splits``."""
+    (s + 1) * chunk)`` for split ``s < splits``, on ``route`` "wgmma" (the
+    query tile's rows whole in shared memory) or "stream" (Q and DB in
+    d-slices: any d)."""
 
     bq: int
     chunk: int
     splits: int
+    route: str = "wgmma"
 
 
 def _check_cuda(*tensors) -> None:
@@ -75,8 +119,7 @@ def rank_cuda(
     w = cand_idx.shape[1]
     if not 1 <= k <= w:
         raise ValueError(f"k={k} must lie in [1, w={w}]")
-    if 4 * (d + 4 * k + 2 * _RANK_TILE) > _SMEM_LIMIT:
-        raise ValueError(f"rank_cuda: k={k} at d={d} exceeds shared memory")
+    geo = rank_geometry(b, d, w, k)
     if Q.dtype != torch.float32 or points.dtype != torch.float32 \
             or cand_idx.dtype != torch.int32 or ok.dtype != torch.bool:
         raise ValueError("rank_cuda: Q/points fp32, cand_idx int32, ok bool")
@@ -91,7 +134,7 @@ def rank_cuda(
     err = lib.rank_launch(
         Q.data_ptr(), points.data_ptr(), sq_norm.data_ptr() if norms else None,
         cand_idx.data_ptr(), ok.data_ptr(), out_d.data_ptr(), out_s.data_ptr(),
-        b, n, d, w, k, FORMS.index(form),
+        b, n, d, w, k, FORMS.index(form), geo.wpq, geo.qpb,
         torch.cuda.current_stream(Q.device).cuda_stream,
     )
     _build.check(err, "rank")
@@ -110,21 +153,53 @@ def knn_smem_bytes(bq: int, d: int, k: int, form: str) -> int:
                 + 2 * bq * k + 2 * bq * _KNN_CAP + 5 * bq + 2)
 
 
+def knn_stream_smem_bytes(bq: int, k: int) -> int:
+    """Shared memory of one block of ``knn.cu``'s streaming route: the
+    ``bq`` top-k states and the merge scratch (dynamic), the Q and DB
+    slices, the distance tile and its ids (static)."""
+    tn, bk = _KNN_STREAM_TN, _KNN_STREAM_BK
+    return 4 * (2 * bq * k + 2 * k + bk * bq + bk * (tn + 1) + bq * tn + tn)
+
+
+def knn_merge_smem_bytes(k: int) -> int:
+    """Shared memory of ``knn.cu``'s per-query merge of the split lists."""
+    return 4 * 6 * k
+
+
+def knn_max_k() -> int:
+    """The largest k ``knn.cu`` takes at any d: one query's state in the
+    streaming route and the merge kernel's six k-vectors must fit."""
+    k = _SMEM_LIMIT // 24
+    while knn_merge_smem_bytes(k) > _SMEM_LIMIT \
+            or knn_stream_smem_bytes(1, k) > _SMEM_LIMIT:
+        k -= 1
+    return k
+
+
 def knn_geometry(nq: int, n: int, d: int, k: int, form: str,
                  sms: int = H100_SMS) -> KnnGeometry:
-    """The launch of ``knn.cu``: the smallest query tile that covers ``nq``
-    among those that fit (else the largest that fits), and as many DB
-    splits as fill one wave of one block per SM with the query tiles (long
-    splits amortise the merges of their first tiles; one block a split and
-    query tile)."""
-    fits = [b for b in _KNN_TILES if knn_smem_bytes(b, d, k, form) <= _SMEM_LIMIT]
+    """The launch of ``knn.cu``. The wgmma route where a query tile fits
+    (k <= 1024): the smallest tile that covers ``nq`` among those that fit
+    (else the largest that fits), and as many DB splits as fill one wave of
+    one block per SM with the query tiles (long splits amortise the merges
+    of their first tiles; one block a split and query tile). Else the
+    streaming route, which takes any d: its tiles chosen the same way, with
+    splits for a few blocks an SM. Raises only past :func:`knn_max_k`."""
+    route, waves = "wgmma", 1
+    fits = [] if k > _KNN_WGMMA_MAX_K else [
+        b for b in _KNN_TILES if knn_smem_bytes(b, d, k, form) <= _SMEM_LIMIT]
     if not fits:
-        raise ValueError(f"knn_cuda: k={k} at d={d} exceeds shared memory")
+        route, waves = "stream", _KNN_STREAM_WAVES
+        fits = [b for b in _KNN_STREAM_TILES
+                if knn_stream_smem_bytes(b, k) <= _SMEM_LIMIT]
+        if not fits or knn_merge_smem_bytes(k) > _SMEM_LIMIT:
+            raise ValueError(f"knn_cuda takes k <= {knn_max_k()} (one query's "
+                             f"top-k state in shared memory), got k={k}")
     bq = next((b for b in fits if b >= nq), fits[-1])
-    splits = max(1, min(sms // max(1, _cdiv(nq, bq)), _cdiv(n, _KNN_MIN_SPLIT),
-                        65535))
+    splits = max(1, min(waves * sms // max(1, _cdiv(nq, bq)),
+                        _cdiv(n, _KNN_MIN_SPLIT), 65535))
     chunk = _cdiv(_cdiv(n, splits), _KNN_TN) * _KNN_TN
-    return KnnGeometry(bq, chunk, _cdiv(n, chunk))
+    return KnnGeometry(bq, chunk, _cdiv(n, chunk), route)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -144,8 +219,6 @@ def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
         raise ValueError(f"dim mismatch {d} vs {d2}")
     if not 1 <= k <= n:
         raise ValueError(f"k={k} must lie in [1, n={n}]")
-    if k > _KNN_MAX_K:
-        raise ValueError(f"knn_cuda supports k <= {_KNN_MAX_K}, got {k}")
     if Q.dtype != torch.float32 or DB.dtype != torch.float32:
         raise ValueError("knn_cuda takes fp32 tensors")
     _check_cuda(Q, DB)
@@ -164,7 +237,8 @@ def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
     err = lib.knn_launch(
         Q.data_ptr(), DB.data_ptr(), qq.data_ptr(), dd.data_ptr(),
         part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), nq, n, d, k, chunk, splits, geo.bq, FORMS.index(form),
+        out_i.data_ptr(), nq, n, d, k, chunk, splits, geo.bq,
+        int(geo.route == "stream"), FORMS.index(form),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "knn")

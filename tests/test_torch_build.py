@@ -142,7 +142,7 @@ def test_build_index_exact_parity_without_shuffle(distance):
     jidx, jstats = jmsa.build_index(data, gl=24, distance=distance,
                                     shuffle=False, group_chunk=8)
     tidx, tstats = msa.build_index(data, gl=24, distance=distance,
-                                   shuffle=False, group_chunk=2)
+                                   shuffle=False, group_chunk=2, device="cpu")
     assert tstats.level_sizes == jstats.level_sizes
     np.testing.assert_allclose(tstats.level_td, jstats.level_td, rtol=1e-6)
     np.testing.assert_array_equal(tidx.leaf_ids.numpy(),
@@ -173,7 +173,7 @@ def test_build_index_euclidean_matches_repro():
     jidx, jstats = jmsa.build_index(data, gl=32, distance="euclidean",
                                     shuffle=False)
     tidx, tstats = msa.build_index(data, gl=32, distance="euclidean",
-                                   shuffle=False, group_chunk=3)
+                                   shuffle=False, group_chunk=3, device="cpu")
     assert tstats.level_sizes == jstats.level_sizes
     np.testing.assert_allclose(tstats.level_td[0], jstats.level_td[0],
                                rtol=1e-2)
@@ -181,7 +181,7 @@ def test_build_index_euclidean_matches_repro():
     live = tidx.levels[0].valid.numpy()
     assert sorted(tidx.leaf_ids.numpy()[live].tolist()) == list(range(260))
     whole, _ = msa.build_index(data, gl=32, distance="euclidean",
-                               shuffle=False, group_chunk=0)
+                               shuffle=False, group_chunk=0, device="cpu")
     for a, b in zip(whole.levels, tidx.levels):
         assert all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields)
 
@@ -192,7 +192,8 @@ def test_build_registry_distances_keep_invariants(distance):
     rng = np.random.default_rng(5)
     data = np.abs(rng.normal(size=(150, 2 if distance == "haversine" else 7)))
     data = (data * (0.3 if distance == "haversine" else 1)).astype(np.float32)
-    tidx, tstats = msa.build_index(data, gl=20, distance=distance)
+    tidx, tstats = msa.build_index(data, gl=20, distance=distance,
+                                   device="cpu")
     assert tstats.level_sizes[0] == 150
     assert check_index_invariants(_as_repro(tidx)) == []
 
@@ -201,7 +202,7 @@ def test_n_levels_and_max_children_match_repro():
     data = _grid_data(300, 4, seed=6)
     jidx, _ = jmsa.build_index(data, gl=24, distance="manhattan", shuffle=False)
     tidx, tstats = msa.build_index(data, gl=24, distance="manhattan",
-                                   shuffle=False)
+                                   shuffle=False, device="cpu")
     assert msa.max_children(tidx) == jmsa.max_children(jidx)
     assert msa.n_levels_for(300, 24) == jmsa.n_levels_for(300, 24)
     assert tstats.n_levels == len(jidx.levels)
@@ -211,7 +212,8 @@ def test_n_levels_and_max_children_match_repro():
 
 def test_kmeans_is_not_yet_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        msa.build_index(_grid_data(50, 3, 7), gl=10, method="kmeans")
+        msa.build_index(_grid_data(50, 3, 7), gl=10, method="kmeans",
+                        device="cpu")
 
 
 def test_radius_estimate_and_per_level_radii():
@@ -228,7 +230,8 @@ def test_radius_estimate_and_per_level_radii():
                                     quantile=0.3, n_pairs=60000,
                                     key=jax.random.PRNGKey(1))
     assert abs(r1 - exact) <= 0.15 * exact  # two samples of one CDF
-    tidx, _ = msa.build_index(data, gl=24, distance="manhattan", shuffle=False)
+    tidx, _ = msa.build_index(data, gl=24, distance="manhattan", shuffle=False,
+                              device="cpu")
     want = jradius.per_level_radii(_as_repro(tidx), "manhattan",
                                    base_radius=2.0)
     got = radius.per_level_radii(tidx, "manhattan", base_radius=2.0)
@@ -244,3 +247,19 @@ def test_build_entry_point_needs_a_gpu_or_cpu():
         PDASCIndex.build(data, gl=12)
     idx = PDASCIndex.build(data, gl=12, device="cpu")
     assert idx.device.type == "cpu" and idx.n_points == 60
+
+
+def test_core_build_index_defaults_to_cuda():
+    """core.build_index without a device asks for CUDA, as every entry
+    point of the port does: here, without a GPU, it raises."""
+    from repro_torch.core import build_index
+
+    data = _grid_data(60, 3, 10)
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_index(data, gl=12)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        msa.build_index_arrays(data, gl=12)
+    index, stats = build_index(data, gl=12, device="cpu")
+    assert index.leaf_ids.device.type == "cpu" and stats.level_sizes[0] == 60

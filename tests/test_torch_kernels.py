@@ -347,14 +347,13 @@ def test_knn_geometry_covers_the_db_once(nq, n, d, k):
 
 def test_knn_geometry_picks_the_query_tile():
     """The smallest tile that covers the queries, else the largest that
-    fits; shapes no tile can hold raise."""
+    fits; shapes no wgmma tile can hold take the streaming route."""
     from repro_torch.kernels import topk
 
     assert topk.knn_geometry(1000, 10**6, 100, 10, "l2").bq == 128
     assert topk.knn_geometry(1000, 10**6, 100, 1024, "l2").bq == 16
     assert topk.knn_geometry(5, 10**6, 100, 10, "l2").bq == 16
-    with pytest.raises(ValueError):
-        topk.knn_geometry(10, 10**6, 4096, 10, "l2")
+    assert topk.knn_geometry(10, 10**6, 4096, 10, "l2").route == "stream"
 
 
 def test_swap_shared_memory_check():
@@ -369,18 +368,186 @@ def test_swap_shared_memory_check():
 
 @pytest.mark.parametrize("source,names", [
     ("knn.cu", {"TN": "_KNN_TN", "BK": "_KNN_BK", "STAGES": "_KNN_STAGES",
-                "CAP": "_KNN_CAP"}),
+                "CAP": "_KNN_CAP", "STREAM_TN": "_KNN_STREAM_TN",
+                "STREAM_BK": "_KNN_STREAM_BK"}),
     ("swap.cu", {"BN": "_BN", "STAGES": "_STAGES", "R": "_ROWS"}),
+    ("pairwise.cu", {"BM": "_BM", "BN": "_BN", "BK": "_BK",
+                     "STAGES": "_STAGES"}),
+    ("rank.cu", {"CAP": "_RANK_CAP", "RING": "_RANK_RING",
+                 "THREADS": "_RANK_THREADS"}),
 ])
 def test_wrapper_layouts_mirror_the_kernels(source, names):
     """The wrappers' shared-memory sums use the kernels' tile constants."""
     import re
     from pathlib import Path
 
-    from repro_torch.kernels import kmedoids as kmk, topk
+    from repro_torch.kernels import kmedoids as kmk, pairwise as pw, topk
 
     text = (Path(ops.__file__).resolve().parents[1] / "csrc" / source).read_text()
-    module = topk if source == "knn.cu" else kmk
+    module = {"knn.cu": topk, "swap.cu": kmk, "pairwise.cu": pw,
+              "rank.cu": topk}[source]
     for c_name, py_name in names.items():
         found = re.search(rf"\b{c_name} = (\d+)", text)
         assert found and int(found.group(1)) == getattr(module, py_name), c_name
+
+
+@pytest.mark.parametrize("nq,n,d,k", [(1000, 100_000, 1536, 10),
+                                      (10, 10**6, 4096, 10),
+                                      (20, 3000, 1536, 1024),
+                                      (1, 129, 1536, 1),
+                                      (3, 12_000, 100, 2000)])
+def test_knn_geometry_streams_what_no_wgmma_tile_holds(nq, n, d, k):
+    """d = 1536 and 4096 (text-embedding widths) and k past 1024 take the
+    streaming route instead of raising: its tile covers the queries where
+    one fits, the splits cover the DB once, and its shared memory fits."""
+    from repro_torch.kernels import topk
+
+    geo = topk.knn_geometry(nq, n, d, k, "l2")
+    assert geo.route == "stream" and geo.bq in (1, 2, 4, 8, 16)
+    assert geo.bq >= min(nq, 16)
+    starts = np.arange(geo.splits) * geo.chunk
+    ends = np.minimum(n, starts + geo.chunk)
+    assert (ends > starts).all() and ends[-1] == n and starts[0] == 0
+    assert (starts[1:] == ends[:-1]).all()
+    assert topk.knn_stream_smem_bytes(geo.bq, k) <= 227 * 1024
+    assert topk.knn_merge_smem_bytes(k) <= 227 * 1024
+
+
+def test_knn_geometry_raises_only_past_the_largest_k():
+    from repro_torch.kernels import topk
+
+    kmax = topk.knn_max_k()
+    assert kmax >= 9000
+    assert topk.knn_geometry(3, 2 * kmax, 100, kmax, "l2").bq == 1
+    with pytest.raises(ValueError, match=f"k <= {kmax}"):
+        topk.knn_geometry(3, 2 * kmax, 100, kmax + 1, "l2")
+
+
+@pytest.mark.parametrize("G,m,n,sym", [(1024, 256, 256, True),
+                                       (1024, 256, 256, False),
+                                       (3, 300, 300, True), (2, 37, 129, False),
+                                       (1, 1000, 128, False), (5, 1, 1, True),
+                                       (70_000, 129, 129, True)])
+def test_pairwise_geometry_covers_every_tile_once(G, m, n, sym):
+    """Every [128, 128] output tile of every group is written by exactly
+    one block (with sym, blocks above the diagonal also write the mirror),
+    G above 65,535 included; a block's shared memory lets two share an SM."""
+    from repro_torch.kernels import pairwise as pw
+
+    geo = pw.pairwise_geometry(G, m, n, sym)
+    tm, tn = -(-m // 128), -(-n // 128)
+    assert (geo.tiles_m, geo.tiles_n) == (tm, tn)
+    per = geo.blocks // G
+    assert per * G == geo.blocks
+    groups = list(range(G)) if G <= 1024 else [0, 1, 2, G - 2, G - 1]
+    seen = {}
+    for grp in groups:
+        for b in range(grp * per, (grp + 1) * per):
+            for tile in geo.tiles(b):
+                seen[tile] = seen.get(tile, 0) + 1
+    assert set(seen.values()) == {1}
+    assert set(seen) == {(g, r, c) for g in groups for r in range(tm)
+                         for c in range(tn)}
+    assert 2 * (pw.pairwise_smem_bytes() + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("b,d,w,k", [(1000, 100, 384, 10), (1000, 100, 384, 32),
+                                     (9, 3, 1, 1), (7, 100, 33, 33),
+                                     (5, 1536, 4096, 4096),
+                                     (3, 100, 31, 10), (1, 4096, 128, 16)])
+def test_rank_geometry_covers_every_query_and_slot_once(b, d, w, k):
+    """Each query has one block and ``wpq`` warps, whose 32-slot tiles
+    (warp j: tiles j, j + wpq, ...) cover its w slots once; the block's
+    shared memory fits and it has at most 8 warps."""
+    from repro_torch.kernels import topk
+
+    geo = topk.rank_geometry(b, d, w, k)
+    assert geo.wpq in (1, 2, 4) and geo.wpq * geo.qpb <= 8
+    queries = [blk * geo.qpb + q for blk in range(geo.blocks)
+               for q in range(geo.qpb) if blk * geo.qpb + q < b]
+    assert queries == list(range(b))
+    tiles = -(-w // 32)
+    slots = sorted(s for j in range(geo.wpq) for t in range(j, tiles, geo.wpq)
+                   for s in range(32 * t, min(w, 32 * t + 32)))
+    assert slots == list(range(w))
+    assert topk.rank_smem_bytes(d, k, geo.wpq, geo.qpb) <= 227 * 1024
+    if w >= 128 and k <= 64:  # the leaf and beam levels: 4 warps a query
+        assert (geo.wpq, geo.qpb) == (4, 2)
+
+
+def test_rank_geometry_raises_past_one_query_state():
+    from repro_torch.kernels import topk
+
+    with pytest.raises(ValueError, match="exceeds shared memory"):
+        topk.rank_geometry(4, 100, 40_000, 30_000)
+
+
+def _build_case():
+    """Four build groups of 256 dense_embed points (d = 100): the emulated
+    3xTF32 distance matrices of pairwise.cu (exact fp32 norms, repro's l2
+    epilogue), the plain fp32 ones and fp64."""
+    from repro_torch.data import make_dataset
+
+    X = torch.from_numpy(make_dataset("dense_embed", n=1024, seed=5)).reshape(
+        4, 256, 100)
+    nn = (X * X).sum(-1)
+    emulated = torch.stack([_gram_distances(_gram_tf32(x, x, True), q, q, "l2")
+                            for x, q in zip(X, nn)])
+    X64 = X.double()
+    exact = torch.stack([_gram_distances(x @ x.T, (x * x).sum(-1),
+                                         (x * x).sum(-1), "l2") for x in X64])
+    return emulated, ref.pairwise_ref(X, X, "l2"), exact
+
+
+def test_pairwise_3xtf32_keeps_the_build():
+    """pairwise.cu's arithmetic on a build slab (G = 4, g = 256, d = 100):
+    the emulated 3xTF32 matrices meet the tolerance rule against fp64
+    (compared squared), and k-medoids on them (pam, swap_tol 1e-3, as the
+    build runs it) picks what it picks on fp32 D until a near-tie: BUILD
+    follows fp32's picks until a step whose two picks' fp64 costs lie
+    within the rule of each other, and the final medoids' fp64 TD is
+    within the swap stop's 1e-3 of fp32's."""
+    from repro_torch.core import kmedoids as km
+
+    emulated, fp32, exact = _build_case()
+    assert_close(emulated.double().numpy() ** 2, exact.numpy() ** 2)
+    valid = torch.ones(4, 256, dtype=torch.bool)
+    be = km.build_grouped(emulated, 128, valid)
+    bf = km.build_grouped(fp32, 128, valid)
+    for i in range(4):
+        diff = torch.nonzero(be[i] != bf[i])
+        if not len(diff):
+            continue
+        s = int(diff[0])
+        D = exact[i]
+        near = torch.full((256,), BIG, dtype=torch.float64)
+        for med in be[i][:s].tolist():
+            near = torch.minimum(near, D[:, med])
+        cost = torch.minimum(near[:, None], D).sum(0)
+        a, b = cost[int(be[i][s])], cost[int(bf[i][s])]
+        tol = 1e-5 * max(1.0, float(cost.max())) + 1e-5 * float(b)
+        assert abs(float(a - b)) <= tol, (i, s, float(a), float(b))
+    pe = km.kmedoids_grouped(emulated, 128, valid, rel_tol=1e-3)
+    pf = km.kmedoids_grouped(fp32, 128, valid, rel_tol=1e-3)
+    td_e = km._labels_and_td(exact, pe.medoids, valid)[1]
+    td_f = km._labels_and_td(exact, pf.medoids, valid)[1]
+    np.testing.assert_allclose(td_e.numpy(), td_f.numpy(), rtol=1e-3)
+
+
+def test_pairwise_3xtf32_is_exact_on_integer_data():
+    """Integers of at most 11 bits split as hi = x, lo = 0, and with every
+    product and sum below 2^24 the 3xTF32 matrix equals fp32's bit for bit
+    (the build's integer-data parity rests on it)."""
+    rng = np.random.default_rng(7)
+    for hi, d in [(64, 100), (2048, 3), (64, 1536)]:
+        X = torch.from_numpy(rng.integers(-hi + 1, hi, size=(2, 96, d)).astype(
+            np.float32))
+        assert torch.equal(_tf32(X), X) and not _tf32(X - _tf32(X)).any()
+        nn = (X * X).sum(-1)
+        for form in ("sqeuclidean", "dot"):
+            want = ref.pairwise_ref(X, X, form)
+            got = torch.stack([
+                torch.clamp(q[:, None] + q[None] - 2 * _gram_tf32(x, x, True),
+                            min=0) if form == "sqeuclidean"
+                else -_gram_tf32(x, x, True) for x, q in zip(X, nn)])
+            assert torch.equal(got, want), (hi, d, form)
