@@ -17,12 +17,17 @@ result line):
    data bit for bit (sqeuclidean); rank at w = 1, 31, 33, 384 and 4096
    with k = 1, 10 and w, d = 3, 100 and 1536, one table row in two slots
    (lower slot first); knn at d = 3 and 100, q = 1 and 129, k = 1024, on a
-   DB of copied rows (lower ids first among copies), and on its streaming
-   route (d = 1536 and 4096, k = 1024 at d = 1536, the largest k it admits
-   at d = 100); swap_deltas also at g = 300, k = 1 and with every row of
-   one slot masked; the scan kernel over every form x {int8, fp16, int4,
-   binary}, ragged d (13, 100, 3), w = 1, a ``slot_valid`` mask. Every
-   kernel's repeat call must be bit-identical.
+   DB of copied rows (lower ids first among copies), on near-duplicate rows
+   at the largest d its wgmma route admits (~1,224, where it accumulates
+   longest), and on its streaming route (d = 1536 and 4096 in every form,
+   k = 33, 100 and 1024, and the largest k it admits, its states in device
+   memory, at d = 100 and 1536); swap_deltas also at g = 300, k = 1 and
+   with every row of one slot masked; the scan kernel over every form x
+   {int8, fp16, int4, binary}, ragged shapes, w = 1, a ``slot_valid``
+   mask, and d = 3, 13, 100 and 101 at w = 384 with k = 1, 10, 128 and
+   w, a row with fewer unmasked slots than k and one table row in two
+   slots (lower slot first). Every kernel's repeat call must be
+   bit-identical.
    Then the card's build against the port's CPU build: integer-valued
    dense_embed-shaped data (n = 20,000, d = 100, values in [0, 64)),
    gl = 256, euclidean, pam, no shuffle, equal level by level; a
@@ -54,9 +59,10 @@ result line):
    forms of knn and pairwise the lesser time of that and 3xTF32 on the
    tensor cores (495 TFLOP/s TF32 / 3). pairwise and knn also in l1
    (their CUDA-core routes), knn also on its streaming route at [1000,
-   100,000, 1536, 10]; rank also summed over one beam search's launches
-   (from the profile). The scan kernel at the storage path's shapes in
-   each of its four code formats.
+   100,000, 1536, 10] and in l1 at [1000, 100,000, 3072, 10] (one plain
+   and one library call there); rank also summed over one beam search's
+   launches (from the profile). The scan kernel at the storage path's
+   shapes in each of its four code formats.
 5. Recall against the record: dense_embed n = 7,800, gl = 256, euclidean,
    beam 32 must reach recall@10 >= 0.85.
 6. The quickstart on the card: euclidean, manhattan, chebyshev and cosine
@@ -106,8 +112,10 @@ KNN_CASES = [  # (q, n, d, k): ragged against every tile, q = 1 and 129
     (20, 1037, 3, 10), (45, 3001, 100, 16), (1, 2000, 100, 10),
     (129, 1500, 100, 10), (5, 3000, 100, 1024)]
 KNN_STREAM_SHAPE = (1000, 100_000, 1536)  # timed: q, n, d (k = 10, l2)
+KNN_STREAM_L1_SHAPE = (1000, 100_000, 3072)  # timed in l1 (fp32 cores)
 KNN_STREAM_CASES = [  # (q, n, d, k): the streaming route (any d; k > 1024)
-    (37, 3000, 1536, 10), (5, 2000, 4096, 10), (20, 3000, 1536, 1024)]
+    (37, 3000, 1536, 10), (5, 2000, 4096, 10), (20, 3000, 1536, 1024),
+    (130, 2600, 4096, 33), (150, 1900, 1536, 100), (7, 2100, 1541, 10)]
 PAIRWISE_CASES = [  # (G, m, n, d, X is Y): ragged against the 128-row tile
     (1, 37, 91, 13, False), (3, 70, 65, 100, False), (1, 1, 129, 2, False),
     (2, 64, 64, 16, False), (1, 1, 37, 1, False), (3, 37, 129, 3, False),
@@ -136,13 +144,20 @@ KERNELS = {
 }
 BEAM_PATH_KERNELS = ("pairwise", "rank", "knn", "swap_deltas")  # phase 3
 STORE_PATH_KERNELS = ("scan", "rank")  # the two-stage call
-KERNEL_SYMBOLS = ("pairwise_kernel", "rank_kernel", "knn_kernel",
-                  "knn_stream_kernel", "knn_merge_kernel", "swap_order_kernel",
-                  "swap_kernel", "scan_kernel")
+SYMBOLS = {  # each kernel's __global__ functions
+    "pairwise": ("pairwise_kernel",), "rank": ("rank_kernel",),
+    "knn": ("knn_kernel", "knn_stream_kernel", "knn_split_kernel", "knn_merge_kernel"),
+    "swap_deltas": ("swap_order_kernel", "swap_kernel"), "scan": ("scan_kernel",)}
+KERNEL_SYMBOLS = tuple(s for syms in SYMBOLS.values() for s in syms)
 STORE_BLOCK = 256  # bench_store.py's full-run block size
 RERANK_WIDTH = 128  # Query's default rerank_width
 SCAN_FORMATS = {"int8": "dense", "fp16": "dense", "int4": "int4",
                 "binary": "binary"}
+SCAN_CASES = [  # (b, w, d, k, n, block): ragged shapes, then SCAN_DIMS x k
+    (5, 300, 37, 10, 500, 64), (3, 17, 13, 17, 40, 8),
+    (4, 130, 100, 7, 1000, 256), (9, 1, 3, 1, 5, 2)]
+SCAN_DIMS = (3, 13, 100, 101)  # odd d: a padded int4 nibble, part-filled bytes
+SCAN_WIDTH = 384  # the two-stage path's leaf candidate width
 
 
 class CheckFailed(RuntimeError):
@@ -168,28 +183,36 @@ def atol_of(ref: np.ndarray) -> float:
     return 1e-5 * max(1.0, float(real.max()) if real.size else 1.0)
 
 
-def values_agree(out, ref, *, squared: bool = False) -> float:
-    """Max abs error of ``out`` against ``ref``; raises outside the rule."""
+def values_agree(out, ref, *, squared: bool = False, atol=None) -> float:
+    """Max abs error of ``out`` against ``ref``; raises outside the rule
+    (``atol`` overrides the rule's, taken from ``ref`` itself)."""
     out = np.asarray(out, np.float64)
     ref = np.asarray(ref, np.float64)
     a, b = (out * out, ref * ref) if squared else (out, ref)
-    tol = atol_of(b) + 1e-5 * np.abs(b)
+    tol = (atol_of(b) if atol is None else atol) + 1e-5 * np.abs(b)
     bad = np.abs(a - b) > tol
     require(not bad.any(), f"values disagree at {int(bad.sum())} entries; "
             f"max err {float(np.abs(a - b).max())}")
     return float(np.abs(out - ref).max()) if out.size else 0.0
 
 
-def topk_agree(kd, ki, rd, ri, recomputed) -> float:
+def topk_agree(kd, ki, rd, ri, recomputed, *, squared: bool = False,
+               atol=None) -> float:
     """Kernel top-k ``(kd, ki)`` against the plain ``(rd, ri)``; also the
-    plain distance of each kernel id (``recomputed``) must equal ``kd``."""
+    plain distance of each kernel id (``recomputed``) must equal ``kd``.
+    ``squared`` and ``atol`` as in ``values_agree`` (near-tied ids are then
+    judged on the squared values)."""
     kd, rd, recomputed = (np.asarray(x, np.float64) for x in (kd, rd, recomputed))
     ki, ri = np.asarray(ki), np.asarray(ri)
     real = rd < BIG / 2
     require(np.array_equal(real, kd < BIG / 2), "masked entries differ")
-    err = values_agree(np.where(real, kd, 0), np.where(real, rd, 0))
-    values_agree(np.where(real, recomputed, 0), np.where(real, kd, 0))
-    atol = atol_of(rd)
+    err = values_agree(np.where(real, kd, 0), np.where(real, rd, 0),
+                       squared=squared, atol=atol)
+    values_agree(np.where(real, recomputed, 0), np.where(real, kd, 0),
+                 squared=squared, atol=atol)
+    if squared:
+        rd = rd * rd
+    atol = atol_of(rd) if atol is None else atol
     for b in range(rd.shape[0]):
         row = rd[b][real[b]]
         for p in np.nonzero((ki[b] != ri[b]) & real[b])[0]:
@@ -321,14 +344,19 @@ def phase_parity() -> dict:
             errs["knn"] = max(errs["knn"], parity_knn(Q, DB, k, form))
         # the streaming route: widths no query tile of the other route
         # holds (l1 and chebyshev keep theirs to d = 1536), k past 1024,
-        # and the largest k the route admits
-        for q, n, d, k in KNN_STREAM_CASES + [(3, 12_000, 100, topk.knn_max_k())]:
+        # and the largest k it admits (its states in device memory), on
+        # small DBs
+        kmax = topk.knn_max_k()
+        for q, n, d, k in KNN_STREAM_CASES + [(3, 12_000, 100, kmax),
+                                              (2, kmax + 15, 1536, kmax)]:
             if form not in ref.VPU_FORMS or d > 2000 or k > 1024:
                 require(topk.knn_geometry(q, n, d, k, form).route == "stream",
                         f"knn {form} [{q}, {n}, {d}, {k}] does not stream")
             Q = _cuda(rng.normal(size=(q, d)).astype(np.float32))
             DB = _cuda(rng.normal(size=(n, d)).astype(np.float32))
             errs["knn"] = max(errs["knn"], parity_knn(Q, DB, k, form))
+        if form not in ref.VPU_FORMS:
+            errs["knn"] = max(errs["knn"], parity_knn_near_duplicates(form))
         # duplicated rows: equal distances come back lower id first
         src = rng.integers(0, 40, size=777)
         base = rng.normal(size=(40, 100)).astype(np.float32)
@@ -461,6 +489,49 @@ def parity_knn(Q, DB, k, form, src=None) -> float:
     return err
 
 
+def parity_knn_near_duplicates(form) -> float:
+    """knn's wgmma route at the largest d it admits at k = 10 (~1,224),
+    where it accumulates longest: a DB whose first 1,500 rows are copies of
+    the 37 queries plus noise of 1e-3 |x|, so every top-k lies near zero.
+    There fp32's Gram form cancels terms of size |x|^2, so the values are
+    held (l2 squared) to the atol of the whole plain distance matrix, the
+    scale pairwise's rule takes; a copy of each query comes first. Returns
+    the max error."""
+    import torch
+    from repro_torch.kernels import ref, topk
+
+    q, n, k = 37, 3000, 10
+    d = max(d for d in range(1000, 1400)
+            if topk.knn_geometry(q, n, d, k, form).route == "wgmma")
+    require(d > 1200, f"the wgmma route stops at d = {d}")
+    rng = np.random.default_rng(7)
+    Q = rng.normal(size=(q, d)).astype(np.float32)
+    DB = rng.normal(size=(n, d)).astype(np.float32)
+    u = rng.normal(size=(n // 2, d))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    src = Q[np.arange(n // 2) % q]
+    DB[:n // 2] = src + 1e-3 * np.linalg.norm(src, axis=1, keepdims=True) * u
+    Q, DB = _cuda(Q), _cuda(DB)
+    full = ref.pairwise_ref(Q, DB, form).cpu().numpy()
+    squared = form == "l2"
+    atol = atol_of(full * full if squared else full)
+    kd, ki = topk.knn_cuda(Q, DB, k, form)
+    rd, ri = ref.knn_ref(Q, DB, k, form)
+    again = torch.gather(ref.pairwise_ref(Q, DB, form), 1, ki.long())
+    err = topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu(),
+                     squared=squared, atol=atol)
+    first = ki[:, 0].cpu().numpy()
+    if form != "dot":  # dot ranks by -x.y, not by nearness
+        require(bool((first < n // 2).all() and (first % q == np.arange(q)).all()),
+                f"knn {form} near duplicates at d={d}: a copy is not first")
+    kd2, ki2 = topk.knn_cuda(Q, DB, k, form)
+    require(bool(torch.equal(kd, kd2) and torch.equal(ki, ki2)),
+            f"knn {form} near duplicates at d={d} differ run to run")
+    log(f"[parity] knn {form} near duplicates at d={d} (wgmma route): max "
+        f"err {err:.3g} (atol {atol:.3g})")
+    return err
+
+
 def scan_rows(Q, codes, scales, block, idx, form, fmt):
     """The plain distance of every candidate ``idx [b, w]`` of a code
     table (what the scan kernel scores), for re-checking its picks."""
@@ -472,29 +543,36 @@ def scan_rows(Q, codes, scales, block, idx, form, fmt):
 
 
 def parity_scan(rng) -> float:
-    """The scan kernel against its plain version: every form x code format,
-    ragged shapes, an all-masked row, a slot_valid mask, k = w, w = 1, and
-    a repeat run that must be bit-identical. Returns the max error."""
+    """The scan kernel against its plain version: every form x code format
+    over SCAN_CASES (ragged shapes, a slot_valid mask, k = w, w = 1), then
+    d = 3, 13, 100 and 101 at the path's width w = 384 (~30% unmasked, as
+    on the path) with k = 1, 10, 128 and w; in each an all-masked row, a
+    row with 3 unmasked slots (fewer than k), one table row in two slots of
+    a row (the lower slot first), and a repeat call that must be
+    bit-identical. Returns the max error."""
     import torch
     from repro_torch.kernels import quantized, ref
     from repro_torch.store import quantize
 
     err = 0.0
+    grid = [(6, SCAN_WIDTH, d, k, 2000, 256) for d in SCAN_DIMS
+            for k in (1, 10, 128, SCAN_WIDTH)]
     for backend, fmt in SCAN_FORMATS.items():
-        for b, w, d, k, n, block in [(5, 300, 37, 10, 500, 64),
-                                     (3, 17, 13, 17, 40, 8),
-                                     (4, 130, 100, 7, 1000, 256),
-                                     (9, 1, 3, 1, 5, 2)]:
+        for b, w, d, k, n, block in SCAN_CASES + grid:
             codes, scales = quantize(
                 _cuda(rng.normal(size=(n, d)).astype(np.float32)), backend,
                 block)
             Q = _cuda(rng.normal(size=(b, d)).astype(np.float32))
             idx = _cuda(rng.integers(0, n, size=(b, w)).astype(np.int32))
-            ok = _cuda(rng.random((b, w)) > 0.3)
+            ok = _cuda(rng.random((b, w)) > (0.7 if w == SCAN_WIDTH else 0.3))
             ok[0] = False  # an all-masked row
-            if d == 13:  # tombstoned table rows, folded as ops does
+            if d == 13 and w != SCAN_WIDTH:  # tombstoned table rows, folded as ops does
                 live = _cuda(rng.random(n) > 0.3)
                 ok = ref.fold_slot_valid(idx, ok, live)
+            if w == SCAN_WIDTH:
+                ok[1] = False  # row 1: three unmasked, slots 0 and 1 one row
+                ok[1, [0, 1, 200]] = True
+                idx[1, 1] = idx[1, 0]
             for form in ref.FORMS:
                 kd, ks = quantized.scan_cuda(Q, codes, scales, block, idx,
                                              ok, k, form, fmt)
@@ -510,7 +588,12 @@ def parity_scan(rng) -> float:
                 kd2, ks2 = quantized.scan_cuda(Q, codes, scales, block, idx,
                                                ok, k, form, fmt)
                 require(bool(torch.equal(kd, kd2) and torch.equal(ks, ks2)),
-                        f"scan {form}/{backend} differs run to run")
+                        f"scan {form}/{backend} d={d} k={k} differs run to run")
+                if w == SCAN_WIDTH:
+                    row = ks[1].tolist()
+                    require(1 not in row or (0 in row and row.index(0) < row.index(1)),
+                            f"scan {form}/{backend} d={d} k={k}: slot 1 before "
+                            f"its twin slot 0")
     return err
 
 
@@ -752,6 +835,7 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
         b_ms, b_by = bound(flops, nbytes, peak)
         src, rep = KERNELS[name]
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                         symbols=SYMBOLS[name],
                          launches=main["counts"][name], max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=lib_ms, shape=shape))
@@ -911,6 +995,41 @@ def phase_timing(data: np.ndarray, main: dict) -> list:
         f"ms, plain {stream['plain_ms']:.4f} ms, library "
         f"{stream['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max "
         f"abs err {err:.3g}")
+    del Q2, DB2, kd, ki, rd, ri
+
+    # the streaming route in l1 at a wider table: fp32 micro-tiles on the
+    # CUDA cores (one subtract and one add an element); the plain version
+    # in [512, 512, d] slabs and cdist(p=1) are slow here, one call each
+    nq, n, d = KNN_STREAM_L1_SHAPE
+    Q3 = torch.randn((nq, d), device="cuda", generator=gen)
+    DB3 = torch.randn((n, d), device="cuda", generator=gen)
+    require(topk.knn_geometry(nq, n, d, 10, "l1").route == "stream",
+            "the 3072-d l1 knn does not take the streaming route")
+
+    def plain_l1_stream():
+        return ref.topk_smallest(ref.pairwise_ref_chunked(Q3, DB3, "l1", 512), 10)
+
+    kd, ki = topk.knn_cuda(Q3, DB3, 10, "l1")
+    t0 = time.perf_counter()
+    rd, ri = plain_l1_stream()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(),
+                     ref.rowwise_ref(Q3, DB3[ki.long()], "l1").cpu())
+    b_ms, b_by = bound(2.0 * nq * n * d, 4.0 * (nq * d + n * d) + 8.0 * nq * 10)
+    stream_l1 = dict(shape=[nq, n, d, 10],
+                     ms=kernel_ms(lambda: topk.knn_cuda(Q3, DB3, 10, "l1"), iters=2,
+                                  replays=1),
+                     plain_ms=plain_ms,
+                     library_ms=time_ms(lambda: torch.topk(
+                         torch.cdist(Q3, DB3, p=1), 10, largest=False), iters=1,
+                         warmup=0),
+                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    rows[-1]["stream_l1"] = stream_l1
+    log(f"[time] knn stream {stream_l1['shape']} l1: kernel "
+        f"{stream_l1['ms']:.4f} ms, plain {plain_ms:.4f} ms (one call), library "
+        f"{stream_l1['library_ms']:.4f} ms (one call), bound {b_ms:.4f} ms "
+        f"({b_by}), max abs err {err:.3g}")
     return rows
 
 
@@ -1078,7 +1197,7 @@ def phase_scan_timing(main: dict, store: dict) -> dict:
     src, rep = KERNELS["scan"]
     main8 = formats["int8"]
     return dict(name="scan", route="cuda", source=src, replaces=rep,
-                launches=store["counts"]["scan"],
+                symbols=SYMBOLS["scan"], launches=store["counts"]["scan"],
                 max_abs_err=max(f["max_abs_err"] for f in formats.values()),
                 ms=main8["ms"], plain_ms=main8["plain_ms"],
                 bound_ms=main8["bound_ms"], bound_by=main8["bound_by"],

@@ -25,10 +25,10 @@
 // - A tile's ok and cand_idx are read coalesced, a slot a lane, one tile
 //   ahead of their use; __ballot_sync/__popc compact the unmasked slots into
 //   a per-warp ring of 64, so masked slots cost nothing (a masked slot never
-//   beats the BIG init entries, which carry lower ids), and steps take 16
+//   beats the BIG init entries, which carry lower ids), and steps take 8
 //   candidates across tiles.
 // - Eight lanes share a candidate, 16 bytes a lane a load, and each group
-//   takes four candidates a step: sixteen candidate rows in flight a warp,
+//   takes two candidates a step: eight candidate rows in flight a warp,
 //   the query row read from shared memory as float4. A three-step shuffle
 //   sums the eight partials; the row norms come from the index's cache.
 // - Each warp keeps its own ascending top-k state in shared memory and
@@ -37,83 +37,21 @@
 //   as knn.cu's) only when it may overflow and once at the end, never per
 //   tile, with no block barrier. A query's warps then merge their states
 //   into the first one's.
-// Every merge ranks by (distance, slot) strictly, so the result does not
-// depend on which warp or step found an entry: a repeat call is
+// The ring, the per-warp top-k and the merges are topk.cuh's, shared with
+// scan.cu. Every merge ranks by (distance, slot) strictly, so the result
+// does not depend on which warp or step found an entry: a repeat call is
 // bit-identical. What holds it back now: the gather, 86% of the warps'
 // cycles (merges 13%).
-#include "common.cuh"
+#include "topk.cuh"
 
 using namespace pdasc;
 
 namespace {
 
 constexpr int THREADS = 256;                     // at most: QPB queries x WPQ warps
-constexpr int CAP = 64;                          // buffer entries a warp
 constexpr int GROUP = 8;                         // lanes a candidate
 constexpr int PER_GROUP = 2;                     // candidates a group a step
 constexpr int STEP = 32 / GROUP * PER_GROUP;     // candidates a warp a step
-constexpr int RING = 64;                         // compacted candidates a warp
-static_assert(STEP - 1 + 32 <= RING, "a tile always fits the ring");
-
-// Shared floats of one query; mirrored by topk.rank_smem_bytes. The query
-// row (padded to 4), then per warp: the state (k, padded to 2), the buffer
-// (CAP) and the ring of compacted candidates (RING), each as a distance or
-// row and an id or slot; every query's row starts 16-byte aligned.
-__host__ __device__ constexpr size_t warp_floats(int k) {
-  return 2 * (size_t)(((k + 1) & ~1) + CAP + RING);
-}
-__host__ __device__ constexpr size_t query_floats(int d, int k, int wpq) {
-  return (size_t)((d + 3) & ~3) + (size_t)wpq * warp_floats(k);
-}
-
-// Merge buffer (bd, bi)[0, c), c <= CAP, into the ascending state
-// (sd, si)[0, k) of one warp. A buffer entry's new rank is its rank in the
-// buffer plus the state entries below it; a state entry moves right by the
-// buffer entries below it. State entries are read and moved 32 at a time
-// from the right, so none is overwritten before it is read; buffer entries
-// land last, on the ranks left free. Ids are unique within the merge.
-__device__ void warp_merge(float* sd, int* si, const float* bd, const int* bi, int c,
-                           int k) {
-  const int lane = threadIdx.x & 31;
-  float ed[CAP / 32];
-  int ei[CAP / 32], pe[CAP / 32];
-#pragma unroll
-  for (int h = 0; h < CAP / 32; ++h) {
-    const int e = lane + 32 * h;
-    pe[h] = k;
-    if (e < c) {
-      ed[h] = bd[e];
-      ei[h] = bi[e];
-      int rank = 0;
-      for (int j = 0; j < c; ++j) rank += key_less(bd[j], bi[j], ed[h], ei[h]);
-      int lo = 0, hi = k;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (key_less(sd[mid], si[mid], ed[h], ei[h])) lo = mid + 1; else hi = mid;
-      }
-      pe[h] = rank + lo;
-    }
-  }
-  for (int base = (k - 1) & ~31; base >= 0; base -= 32) {
-    const int i = base + lane;
-    float v = 0.0f;
-    int id = 0, p = i;
-    if (i < k) {
-      v = sd[i];
-      id = si[i];
-      for (int j = 0; j < c; ++j) p += key_less(bd[j], bi[j], v, id);
-    }
-    // a chunk where nothing moves: nothing to its left moves either
-    if (__all_sync(0xffffffffu, p == i)) break;
-    __syncwarp();
-    if (i < k && p != i && p < k) { sd[p] = v; si[p] = id; }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int h = 0; h < CAP / 32; ++h)
-    if (pe[h] < k) { sd[pe[h]] = ed[h]; si[pe[h]] = ei[h]; }
-  __syncwarp();
-}
 
 template <int FORM>
 __global__ void __launch_bounds__(THREADS, 4)
@@ -128,19 +66,15 @@ rank_kernel(const float* __restrict__ Q, const float* __restrict__ P,
   const int ql = warp / wpq, wi = warp % wpq;  // query in the block, warp in the query
   const int dq = (d + 3) & ~3;
   float* q = smem + ql * query_floats(d, k, wpq);
-  float* sd = q + dq + wi * warp_floats(k);  // [k] state
-  int* si = (int*)(sd + k);
-  float* bd = (float*)(si + k);  // [CAP] buffer
-  int* bi = (int*)(bd + CAP);
-  int* lrow = bi + CAP;          // [RING] compacted candidates: rows, slots
-  int* lslot = lrow + RING;
 
   const long long qi = (long long)blockIdx.x * qpb + ql;
   const bool live = qi < b;  // warp-uniform; dead warps still meet the barriers
   if (live)
     for (int e = wi * 32 + lane; e < dq; e += wpq * 32)
       q[e] = e < d ? Q[qi * d + e] : 0.0f;
-  for (int i = lane; i < k; i += 32) { sd[i] = BIG; si[i] = i - k; }
+  WarpTopk top(q + dq + wi * warp_floats(k), k);
+  const int* lrow = top.ring_rows();
+  const int* lslot = top.ring_slots();
   __syncthreads();
 
   float qq = 0.0f;
@@ -148,27 +82,13 @@ rank_kernel(const float* __restrict__ Q, const float* __restrict__ P,
     for (int e = lane; e < d; e += 32) qq = fmaf(q[e], q[e], qq);
     qq = warp_reduce<SQEUCLIDEAN>(qq);
   }
-  float kd = BIG;  // the state's k-th entry
-  int ks = -1, bc = 0;
-  const int* crow = cidx + qi * w;
-  const unsigned char* okrow = ok + qi * w;
   const int grp = lane / GROUP, gl = lane % GROUP;
   const bool vec = (d & 3) == 0 && ((size_t)P & 15) == 0;  // 16-byte rows
   const float4* q4 = (const float4*)q;
 
-  const int tiles = live ? (w + 31) / 32 : 0;
-  int t = wi;
-  bool nv = false;
-  int nr = 0;
-  if (t < tiles) {  // the first tile's mask and rows
-    const int slot = t * 32 + lane;
-    nv = slot < w && okrow[slot];
-    nr = slot < w ? crow[slot] : 0;
-  }
-  int head = 0, cnt = 0;  // the ring of compacted candidates
-  // Distances of the ring's first `take` candidates (STEP at most), and
-  // the appends of those that beat the k-th entry.
-  auto step = [&](int take) {
+  // Distances of the ring's `take` candidates from `head` (STEP at most),
+  // and the appends of those that beat the k-th entry.
+  auto step = [&](int head, int take) {
     int rows[PER_GROUP];
     float acc[PER_GROUP];
 #pragma unroll
@@ -209,73 +129,18 @@ rank_kernel(const float* __restrict__ Q, const float* __restrict__ P,
       const int j = h * (32 / GROUP) + grp;
       const float dist = finish<FORM>(acc[h], qq, NORMS ? sqn[rows[h]] : 0.0f);
       const int s = lslot[(head + (j < take ? j : 0)) % RING];
-      const bool pass = gl == 0 && j < take && key_less(dist, s, kd, ks);
-      const unsigned pm = __ballot_sync(0xffffffffu, pass);
-      if (pass) {
-        const int at = bc + __popc(pm & ((1u << lane) - 1));
-        bd[at] = dist;
-        bi[at] = s;
-      }
-      bc += __popc(pm);
+      top.offer(gl == 0 && j < take, dist, s);
     }
-    head = (head + take) % RING;
-    cnt -= take;
-    if (bc > CAP - STEP) {  // the next step could overflow: merge now
-      __syncwarp();
-      warp_merge(sd, si, bd, bi, bc, k);
-      bc = 0;
-      kd = sd[k - 1];
-      ks = si[k - 1];
-    }
-    __syncwarp();  // the ring's entries are read before they are reused
+    top.make_room(STEP);  // the next step could overflow: merge now
   };
-  for (; t < tiles; t += wpq) {
-    const bool v = nv;
-    const int r = min(max(nr, 0), n - 1), slot = t * 32 + lane;
-    const int tn = t + wpq;  // the next tile's, read ahead
-    if (tn < tiles) {
-      const int s2 = tn * 32 + lane;
-      nv = s2 < w && okrow[s2];
-      nr = s2 < w ? crow[s2] : 0;
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, v);
-    if (v) {
-      const int at = (head + cnt + __popc(mask & ((1u << lane) - 1))) % RING;
-      lrow[at] = r;
-      lslot[at] = slot;
-    }
-    cnt += __popc(mask);  // < STEP + 32 <= RING
-    __syncwarp();
-    while (cnt >= STEP) step(STEP);
-  }
-  if (cnt > 0) step(cnt);
-  if (bc > 0) {
-    __syncwarp();
-    warp_merge(sd, si, bd, bi, bc, k);
-  }
+  const int* crow = cidx + qi * w;
+  const unsigned char* okrow = ok + qi * w;
+  for_each_candidate<STEP>(crow, okrow, w, n, wi, wpq, live ? (w + 31) / 32 : 0,
+                           top.ring_rows(), top.ring_slots(), step);
+  top.flush();
 
-  // The query's other warps' real entries (a prefix of each state, ids >= 0)
-  // merge into the first warp's state, CAP at a time.
   __syncthreads();
-  if (live && wi == 0) {
-    for (int o = 1; o < wpq; ++o) {
-      const float* od = sd + o * warp_floats(k);
-      const int* oi = (const int*)(od + k);
-      for (int c0 = 0; c0 < k; c0 += CAP) {
-        const int c = min(CAP, k - c0);
-        const int e = c0 + lane, e2 = e + 32;
-        const int real = __popc(__ballot_sync(0xffffffffu, e < c0 + c && oi[min(e, k - 1)] >= 0)) +
-                         __popc(__ballot_sync(0xffffffffu, e2 < c0 + c && oi[min(e2, k - 1)] >= 0));
-        if (real == 0 || !key_less(od[c0], oi[c0], sd[k - 1], si[k - 1])) break;
-        warp_merge(sd, si, od + c0, oi + c0, real, k);
-        if (real < c) break;
-      }
-    }
-    for (int i = lane; i < k; i += 32) {
-      out_d[qi * k + i] = sd[i];
-      out_s[qi * k + i] = min(max(si[i], 0), w - 1);
-    }
-  }
+  if (live) top.write_query(wi, wpq, w, out_d + qi * k, out_s + qi * k);
 }
 
 template <int FORM>

@@ -21,6 +21,15 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return r;
 }
 
+// tf32() by integer arithmetic: the same bits for every finite x (round to
+// nearest, ties away from zero, on the low 13 bits), at the integer units'
+// full rate where cvt issues at a quarter of it. knn.cu's streaming route
+// splits its operands with it: there the splits of each 32-column stage,
+// between block barriers, were bound by cvt.
+__device__ __forceinline__ uint32_t tf32_int(float x) {
+  return (__float_as_uint(x) + 0x1000u) & ~0x1FFFu;
+}
+
 // Four 8 x 4 fp32 matrices from shared memory (an 8 x 8 b16 ldmatrix each);
 // lane l gives the row address of matrix l / 8, row l % 8, and receives
 // element (l / 4, l % 4) of each matrix: the TF32 MMA fragment layout.

@@ -5,9 +5,11 @@
 store's quantised code table, against the codes in their native container
 (int8, fp16, two int4 nibbles per byte, eight sign bits per byte). It reads
 each candidate's code row and block scale itself, unpacks and dequantises
-in registers, and keeps a streaming top-k. Plain version:
-``ref.scan_gathered_ref``. It returns ascending distances with the lower
-slot first among equal distances, as ``jax.lax.top_k`` does.
+in registers, and keeps a per-warp top-k, as ``rank_cuda`` does (the two
+kernels share ``csrc/topk.cuh`` and the launch shape of
+``topk.rank_geometry``). Plain version: ``ref.scan_gathered_ref``. It
+returns ascending distances with the lower slot first among equal
+distances, as ``jax.lax.top_k`` does.
 """
 
 from __future__ import annotations
@@ -16,16 +18,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, topk
 from repro_torch.kernels.ref import CODE_FORMATS, FORMS, packed_width
 
 launches = 0  # launches since the last ops.reset_launch_counts()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SCAN = {"scan_launch": [_P] * 7 + [_I] * 10 + [_P]}
-
-_SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
-_TILE = 128  # candidates per tile in scan.cu
+_SCAN = {"scan_launch": [_P] * 7 + [_I] * 13 + [_P]}
 
 # (code format, container dtype) -> the container code of scan.cu
 _CONTAINERS = {
@@ -34,6 +33,24 @@ _CONTAINERS = {
     ("int4", torch.int8): 2,
     ("binary", torch.uint8): 3,
 }
+
+
+def scan_geometry(b: int, d: int, w: int, k: int) -> topk.RankGeometry:
+    """The launch of ``scan.cu``: ``rank.cu``'s (the per-query shared
+    memory of the two is one layout, ``csrc/topk.cuh``). Raises only where
+    one warp's state for one query does not fit."""
+    return topk.rank_geometry(b, d, w, k, "scan_cuda")
+
+
+def load_width(row_bytes: int, address: int, widest: int = 16) -> int:
+    """Bytes of one code load in ``scan.cu``: the largest of 16, 8, 4, 2 and
+    1, at most ``widest``, that divides both the row stride and the table's
+    address, so that no load straddles a row or is misaligned (rows are
+    100, 50 or 13 bytes at d = 100 for int8, int4 and binary). Binary codes
+    take at most 4 bytes (32 values) a load, as scan.cu unpacks a load's
+    values in registers."""
+    return next(v for v in (16, 8, 4, 2, 1)
+                if v <= widest and row_bytes % v == 0 and address % v == 0)
 
 
 def scan_cuda(
@@ -72,8 +89,7 @@ def scan_cuda(
         raise ValueError(f"k={k} must lie in [1, w={w}]")
     if block < 1 or scales.dim() != 1 or scales.shape[0] < 1:
         raise ValueError("scan_cuda: needs block >= 1 and scales [nb >= 1]")
-    if 4 * (d + 4 * k + 2 * _TILE) > _SMEM_LIMIT:
-        raise ValueError(f"scan_cuda: k={k} at d={d} exceeds shared memory")
+    geo = scan_geometry(b, d, w, k)
     if Q.dtype != torch.float32 or scales.dtype != torch.float32 \
             or cand_idx.dtype != torch.int32 or ok.dtype != torch.bool:
         raise ValueError("scan_cuda: Q/scales fp32, cand_idx int32, ok bool")
@@ -88,7 +104,10 @@ def scan_cuda(
         Q.data_ptr(), codes.data_ptr(), scales.data_ptr(), cand_idx.data_ptr(),
         ok.data_ptr(), out_d.data_ptr(), out_s.data_ptr(),
         b, n, scales.shape[0], block, d, dc, w, k, FORMS.index(form),
-        container, torch.cuda.current_stream(Q.device).cuda_stream,
+        container, geo.wpq, geo.qpb,
+        load_width(dc * codes.element_size(), codes.data_ptr(),
+                   4 if fmt == "binary" else 16),
+        torch.cuda.current_stream(Q.device).cuda_stream,
     )
     _build.check(err, "scan")
     launches += 1

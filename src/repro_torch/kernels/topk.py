@@ -27,18 +27,16 @@ knn_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _RANK = {"rank_launch": [_P] * 7 + [_I] * 8 + [_P]}
-_KNN = {"knn_launch": [_P] * 8 + [_I] * 9 + [_P]}
+_KNN = {"knn_launch": [_P] * 9 + [_I] * 10 + [_P]}
 
 _SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
-_RANK_CAP, _RANK_RING = 64, 64  # buffer entries, ring entries a warp (rank.cu)
+_RANK_CAP, _RANK_RING = 64, 64  # buffer entries, ring entries a warp (topk.cuh)
 _RANK_THREADS = 256  # at most, a block of rank.cu
 _RANK_MAX_WARPS = _RANK_THREADS // 32
 _KNN_WGMMA_MAX_K = 1024
 _KNN_TILES = (16, 32, 64, 128)  # knn.cu's query tiles (a template parameter)
 _KNN_TN, _KNN_BK, _KNN_STAGES, _KNN_CAP = 128, 64, 2, 32  # as in knn.cu
-_KNN_STREAM_TILES = (1, 2, 4, 8, 16)  # the streaming route's query tiles
-_KNN_STREAM_TN, _KNN_STREAM_BK = 128, 32  # as in knn.cu
-_KNN_STREAM_WAVES = 4  # blocks an SM of the streaming route (small smem)
+_KNN_STREAM_BK, _KNN_STREAM_STAGES = 32, 3  # the streaming route's (knn.cu)
 _KNN_MIN_SPLIT = 1024  # fewest DB rows a split is worth
 H100_SMS = 132
 
@@ -62,10 +60,13 @@ def rank_smem_bytes(d: int, k: int, wpq: int, qpb: int) -> int:
     return 4 * qpb * (_cdiv(d, 4) * 4 + wpq * warp)
 
 
-def rank_geometry(b: int, d: int, w: int, k: int) -> RankGeometry:
+def rank_geometry(b: int, d: int, w: int, k: int,
+                  what: str = "rank_cuda") -> RankGeometry:
     """Four warps a query where ``w`` has four 32-slot tiles (else two or
     one), as many queries as fill 8 warps; fewer queries a block, then
-    fewer warps a query, where the states would not fit."""
+    fewer warps a query, where the states would not fit. Raises only where
+    one warp's state for one query does not fit. (``scan.cu`` shares the
+    layout, ``csrc/topk.cuh``; ``what`` names the caller.)"""
     tiles = _cdiv(w, 32)
     wpq = 4 if tiles >= 4 else 2 if tiles >= 2 else 1
     qpb = _RANK_MAX_WARPS // wpq
@@ -75,7 +76,10 @@ def rank_geometry(b: int, d: int, w: int, k: int) -> RankGeometry:
         elif wpq > 1:
             wpq //= 2
         else:
-            raise ValueError(f"rank_cuda: k={k} at d={d} exceeds shared memory")
+            raise ValueError(
+                f"{what}: k={k} at d={d} exceeds shared memory (one query's "
+                f"state takes {rank_smem_bytes(d, k, 1, 1)} bytes, a block "
+                f"may use {_SMEM_LIMIT})")
     return RankGeometry(wpq, qpb, _cdiv(b, qpb))
 
 
@@ -83,12 +87,15 @@ class KnnGeometry(NamedTuple):
     """A ``knn.cu`` launch: ``bq`` queries per block, DB rows ``[s * chunk,
     (s + 1) * chunk)`` for split ``s < splits``, on ``route`` "wgmma" (the
     query tile's rows whole in shared memory) or "stream" (Q and DB in
-    d-slices: any d)."""
+    d-slices: any d). ``shared_states``: the block's top-k states in shared
+    memory; else (stream only, large k) in the per-split lists in device
+    memory."""
 
     bq: int
     chunk: int
     splits: int
     route: str = "wgmma"
+    shared_states: bool = True
 
 
 def _check_cuda(*tensors) -> None:
@@ -153,12 +160,20 @@ def knn_smem_bytes(bq: int, d: int, k: int, form: str) -> int:
                 + 2 * bq * k + 2 * bq * _KNN_CAP + 5 * bq + 2)
 
 
-def knn_stream_smem_bytes(bq: int, k: int) -> int:
+def knn_stream_smem_bytes(bq: int, k: int, form: str,
+                          shared_states: bool = True) -> int:
     """Shared memory of one block of ``knn.cu``'s streaming route: the
-    ``bq`` top-k states and the merge scratch (dynamic), the Q and DB
-    slices, the distance tile and its ids (static)."""
-    tn, bk = _KNN_STREAM_TN, _KNN_STREAM_BK
-    return 4 * (2 * bq * k + 2 * k + bk * bq + bk * (tn + 1) + bq * tn + tn)
+    stages' barriers and 1 KB to align the ring, the ring (a stage: the DB
+    rows and the pre-split queries' TF32 hi and lo for the Gram forms, DB
+    and query rows padded to 4 more columns for the others), the top-k
+    states (unless they live in device memory), the candidate buffers, the
+    per-query k-th entries and the list of queries to merge."""
+    bk = _KNN_STREAM_BK
+    stage = (_KNN_TN + bq) * (bk + 4) if form in VPU_FORMS \
+        else (_KNN_TN + 2 * bq) * bk
+    states = 2 * bq * k if shared_states else 0
+    return 32 + 1024 + 4 * (_KNN_STREAM_STAGES * stage + states
+                            + 2 * bq * _KNN_CAP + 5 * bq + 2)
 
 
 def knn_merge_smem_bytes(k: int) -> int:
@@ -167,11 +182,11 @@ def knn_merge_smem_bytes(k: int) -> int:
 
 
 def knn_max_k() -> int:
-    """The largest k ``knn.cu`` takes at any d: one query's state in the
-    streaming route and the merge kernel's six k-vectors must fit."""
+    """The largest k ``knn.cu`` takes at any d: the merge kernel's six
+    k-vectors must fit in shared memory (the streaming route keeps states
+    that do not fit there in device memory)."""
     k = _SMEM_LIMIT // 24
-    while knn_merge_smem_bytes(k) > _SMEM_LIMIT \
-            or knn_stream_smem_bytes(1, k) > _SMEM_LIMIT:
+    while knn_merge_smem_bytes(k) > _SMEM_LIMIT:
         k -= 1
     return k
 
@@ -180,26 +195,30 @@ def knn_geometry(nq: int, n: int, d: int, k: int, form: str,
                  sms: int = H100_SMS) -> KnnGeometry:
     """The launch of ``knn.cu``. The wgmma route where a query tile fits
     (k <= 1024): the smallest tile that covers ``nq`` among those that fit
-    (else the largest that fits), and as many DB splits as fill one wave of
-    one block per SM with the query tiles (long splits amortise the merges
-    of their first tiles; one block a split and query tile). Else the
-    streaming route, which takes any d: its tiles chosen the same way, with
-    splits for a few blocks an SM. Raises only past :func:`knn_max_k`."""
-    route, waves = "wgmma", 1
+    (else the largest that fits). Else the streaming route, which takes any
+    d: its tiles chosen the same way among those whose states fit in shared
+    memory, else the smallest tile with its states in device memory. Both
+    take as many DB splits as fill one wave of one block per SM with the
+    query tiles (long splits amortise the merges of their first tiles; one
+    block a split and query tile). Raises only past :func:`knn_max_k`."""
+    if knn_merge_smem_bytes(k) > _SMEM_LIMIT:
+        raise ValueError(f"knn_cuda takes k <= {knn_max_k()} (the per-query "
+                         f"merge of the split lists in shared memory), got "
+                         f"k={k}")
+    route, shared = "wgmma", True
     fits = [] if k > _KNN_WGMMA_MAX_K else [
         b for b in _KNN_TILES if knn_smem_bytes(b, d, k, form) <= _SMEM_LIMIT]
     if not fits:
-        route, waves = "stream", _KNN_STREAM_WAVES
-        fits = [b for b in _KNN_STREAM_TILES
-                if knn_stream_smem_bytes(b, k) <= _SMEM_LIMIT]
-        if not fits or knn_merge_smem_bytes(k) > _SMEM_LIMIT:
-            raise ValueError(f"knn_cuda takes k <= {knn_max_k()} (one query's "
-                             f"top-k state in shared memory), got k={k}")
+        route = "stream"
+        fits = [b for b in _KNN_TILES
+                if knn_stream_smem_bytes(b, k, form) <= _SMEM_LIMIT]
+        if not fits:
+            fits, shared = [_KNN_TILES[0]], False
     bq = next((b for b in fits if b >= nq), fits[-1])
-    splits = max(1, min(waves * sms // max(1, _cdiv(nq, bq)),
+    splits = max(1, min(sms // max(1, _cdiv(nq, bq)),
                         _cdiv(n, _KNN_MIN_SPLIT), 65535))
     chunk = _cdiv(_cdiv(n, splits), _KNN_TN) * _KNN_TN
-    return KnnGeometry(bq, chunk, _cdiv(n, chunk), route)
+    return KnnGeometry(bq, chunk, _cdiv(n, chunk), route, shared)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -227,6 +246,17 @@ def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
     chunk, splits = geo.chunk, geo.splits
     norms = form in NORM_FORMS
     dev = Q.device
+    # the streaming route's Gram forms load the DB by TMA, whose row stride
+    # must be a multiple of 16 bytes: zero columns change no Gram sum
+    split = geo.route == "stream" and form not in VPU_FORMS
+    if split and (d % 4 or DB.data_ptr() % 16):
+        pad = _cdiv(d, 4) * 4 - d
+        Q = torch.nn.functional.pad(Q, (0, pad))
+        DB = torch.nn.functional.pad(DB, (0, pad))
+        d += pad
+    # ... and split Q once: [2][nq to a whole tile][d to 8]
+    qsplit = torch.empty(2 * _cdiv(nq, geo.bq) * geo.bq * _cdiv(d, 8) * 8 if split else 0,
+                         device=dev)
     qq = torch.empty(nq if norms else 0, device=dev)
     dd = torch.empty(n if norms else 0, device=dev)
     part_d = torch.empty((splits, nq, k), device=dev, dtype=torch.float32)
@@ -237,8 +267,9 @@ def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
     err = lib.knn_launch(
         Q.data_ptr(), DB.data_ptr(), qq.data_ptr(), dd.data_ptr(),
         part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), nq, n, d, k, chunk, splits, geo.bq,
-        int(geo.route == "stream"), FORMS.index(form),
+        out_i.data_ptr(), qsplit.data_ptr(), nq, n, d, k, chunk, splits, geo.bq,
+        int(geo.route == "stream"), int(not geo.shared_states),
+        FORMS.index(form),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "knn")

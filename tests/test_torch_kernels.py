@@ -46,14 +46,16 @@ def assert_close(got, want):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=_tol(want))
 
 
-def assert_topk_agree(gd, gi, wd, wi):
-    """Dists close; ids equal except among near-tied real entries."""
+def assert_topk_agree(gd, gi, wd, wi, atol=None):
+    """Dists close; ids equal except among near-tied real entries. ``atol``
+    defaults to the rule's, taken from the top-k values themselves."""
     gd, wd = np.asarray(gd, np.float64), np.asarray(wd, np.float64)
     gi, wi = np.asarray(gi), np.asarray(wi)
     real = wd < BIG / 2
     assert np.array_equal(real, gd < BIG / 2)
-    assert_close(np.where(real, gd, 0), np.where(real, wd, 0))
-    atol = _tol(wd)
+    atol = _tol(wd) if atol is None else atol
+    np.testing.assert_allclose(np.where(real, gd, 0), np.where(real, wd, 0),
+                               rtol=1e-5, atol=atol)
     for b in range(wd.shape[0]):
         row = wd[b][real[b]]
         for p in np.nonzero((gi[b] != wi[b]) & real[b])[0]:
@@ -300,14 +302,65 @@ def _precision_case(form, three):
     return Q, DB, got, want
 
 
-@pytest.mark.parametrize("form", ["l2", "cosine"])
-def test_knn_3xtf32_keeps_the_fp32_ranking(form):
-    Q, DB, got, want = _precision_case(form, three=True)
+def _gram_tf32_promoted(Q, DB, width=32):
+    """``Q @ DB.T`` as knn.cu forms it past d = 128: 3xTF32 products of
+    each ``width``-column stage summed into a fresh accumulator, which is
+    then added to the running sum in fp32 (per-stage promotion)."""
+    acc = torch.zeros(Q.shape[0], DB.shape[0])
+    for c in range(0, Q.shape[1], width):
+        acc = acc + _gram_tf32(Q[:, c:c + width], DB[:, c:c + width], True)
+    return acc
+
+
+def _near_duplicate_case(form, d=1536, q=48, n=4000):
+    """Normal queries and rows, the first half of the rows copies of the
+    queries plus noise of 1e-3 |x| (the case chip_smoke.py holds the wgmma
+    route to at its largest d): emulated promoted distances and fp64, l2
+    returned squared."""
+    rng = np.random.default_rng(11)
+    Q = rng.normal(size=(q, d)).astype(np.float32)
+    DB = rng.normal(size=(n, d)).astype(np.float32)
+    u = rng.normal(size=(n // 2, d))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    src = Q[np.arange(n // 2) % q]
+    DB[:n // 2] = src + 1e-3 * np.linalg.norm(src, axis=1, keepdims=True) * u
+    Q, DB = torch.from_numpy(Q), torch.from_numpy(DB)
+    got = _gram_distances(_gram_tf32_promoted(Q, DB), (Q * Q).sum(-1),
+                          (DB * DB).sum(-1), form)
+    Q64, D64 = Q.double(), DB.double()
+    want = _gram_distances(Q64 @ D64.T, (Q64 * Q64).sum(-1),
+                           (D64 * D64).sum(-1), form)
+    if form == "l2":
+        got, want = got.double() ** 2, want ** 2
+    return Q, DB, got, want
+
+
+@pytest.mark.parametrize("form,d", [
+    pytest.param("l2", 100, id="l2"), pytest.param("cosine", 100, id="cosine"),
+    pytest.param("l2", 1536, id="l2-d1536-promoted")])
+def test_knn_3xtf32_keeps_the_fp32_ranking(form, d):
+    """3xTF32 keeps fp32's top-k under the tolerance rule: at d = 100 in
+    one accumulation; at d = 1536 (near-duplicate rows) with each 32-column
+    stage's products promoted into an fp32 sum, as knn.cu does past 128.
+    There the top-k lies near zero, where fp32's own Gram form cancels
+    terms of size |x|^2: its values are held squared, to the atol of the
+    whole distance matrix (the scale pairwise's rule takes)."""
+    if d == 100:
+        Q, DB, got, want = _precision_case(form, three=True)
+        assert_close(got.numpy(), want.numpy())
+        emulated = got.sqrt() if form == "l2" else got
+        gd, gi = ref.topk_smallest(emulated.float(), 10)
+        wd, wi = ref.knn_ref(Q, DB, 10, form)
+        assert_topk_agree(gd, gi, wd, wi)
+        return
+    Q, DB, got, want = _near_duplicate_case(form, d)
     assert_close(got.numpy(), want.numpy())
-    emulated = got.sqrt() if form == "l2" else got
-    gd, gi = ref.topk_smallest(emulated.float(), 10)
-    wd, wi = ref.knn_ref(Q, DB, 10, form)
-    assert_topk_agree(gd, gi, wd, wi)
+    gd, gi = ref.topk_smallest(got.float(), 10)
+    wd, wi = ref.knn_ref(Q, DB, 10, "sqeuclidean")
+    assert_topk_agree(gd, gi, wd, wi, atol=_tol(want.numpy()))
+    first = gi[:, 0].numpy()  # a copy of the query comes first
+    assert (first < DB.shape[0] // 2).all()
+    assert (first % Q.shape[0] == np.arange(Q.shape[0])).all()
 
 
 @pytest.mark.parametrize("form", ["l2", "cosine"])
@@ -368,13 +421,14 @@ def test_swap_shared_memory_check():
 
 @pytest.mark.parametrize("source,names", [
     ("knn.cu", {"TN": "_KNN_TN", "BK": "_KNN_BK", "STAGES": "_KNN_STAGES",
-                "CAP": "_KNN_CAP", "STREAM_TN": "_KNN_STREAM_TN",
-                "STREAM_BK": "_KNN_STREAM_BK"}),
+                "CAP": "_KNN_CAP", "STREAM_BK": "_KNN_STREAM_BK",
+                "STREAM_STAGES": "_KNN_STREAM_STAGES"}),
     ("swap.cu", {"BN": "_BN", "STAGES": "_STAGES", "R": "_ROWS"}),
     ("pairwise.cu", {"BM": "_BM", "BN": "_BN", "BK": "_BK",
                      "STAGES": "_STAGES"}),
-    ("rank.cu", {"CAP": "_RANK_CAP", "RING": "_RANK_RING",
-                 "THREADS": "_RANK_THREADS"}),
+    ("rank.cu", {"THREADS": "_RANK_THREADS"}),
+    ("topk.cuh", {"CAP": "_RANK_CAP", "RING": "_RANK_RING"}),
+    ("scan.cu", {"THREADS": "_RANK_THREADS"}),
 ])
 def test_wrapper_layouts_mirror_the_kernels(source, names):
     """The wrappers' shared-memory sums use the kernels' tile constants."""
@@ -385,7 +439,7 @@ def test_wrapper_layouts_mirror_the_kernels(source, names):
 
     text = (Path(ops.__file__).resolve().parents[1] / "csrc" / source).read_text()
     module = {"knn.cu": topk, "swap.cu": kmk, "pairwise.cu": pw,
-              "rank.cu": topk}[source]
+              "rank.cu": topk, "topk.cuh": topk, "scan.cu": topk}[source]
     for c_name, py_name in names.items():
         found = re.search(rf"\b{c_name} = (\d+)", text)
         assert found and int(found.group(1)) == getattr(module, py_name), c_name
@@ -403,13 +457,14 @@ def test_knn_geometry_streams_what_no_wgmma_tile_holds(nq, n, d, k):
     from repro_torch.kernels import topk
 
     geo = topk.knn_geometry(nq, n, d, k, "l2")
-    assert geo.route == "stream" and geo.bq in (1, 2, 4, 8, 16)
+    assert geo.route == "stream" and geo.bq in (16, 32, 64, 128)
     assert geo.bq >= min(nq, 16)
     starts = np.arange(geo.splits) * geo.chunk
     ends = np.minimum(n, starts + geo.chunk)
     assert (ends > starts).all() and ends[-1] == n and starts[0] == 0
     assert (starts[1:] == ends[:-1]).all()
-    assert topk.knn_stream_smem_bytes(geo.bq, k) <= 227 * 1024
+    assert topk.knn_stream_smem_bytes(geo.bq, k, "l2",
+                                      geo.shared_states) <= 227 * 1024
     assert topk.knn_merge_smem_bytes(k) <= 227 * 1024
 
 
@@ -418,9 +473,44 @@ def test_knn_geometry_raises_only_past_the_largest_k():
 
     kmax = topk.knn_max_k()
     assert kmax >= 9000
-    assert topk.knn_geometry(3, 2 * kmax, 100, kmax, "l2").bq == 1
+    geo = topk.knn_geometry(3, 2 * kmax, 100, kmax, "l2")
+    assert (geo.route, geo.bq, geo.shared_states) == ("stream", 16, False)
     with pytest.raises(ValueError, match=f"k <= {kmax}"):
         topk.knn_geometry(3, 2 * kmax, 100, kmax + 1, "l2")
+
+
+@pytest.mark.parametrize("d", [100, 1536, 4096])
+@pytest.mark.parametrize("k", [1, 10, 100, 1024, 1400, 2000, 9685])
+@pytest.mark.parametrize("form", ["l2", "l1"])
+def test_knn_stream_geometry_covers_the_db_once_for_every_k(d, k, form):
+    """Every k up to knn_max_k() is admitted; on the streaming route the
+    splits cover the DB once, the tile's shared memory fits, and the states
+    move to device memory only where no tile's states fit in shared memory;
+    the wgmma route takes no k past 1024."""
+    from repro_torch.kernels import topk
+
+    assert k <= topk.knn_max_k()
+    nq, n = 1000, 3 * k + 20_000
+    geo = topk.knn_geometry(nq, n, d, k, form)
+    starts = np.arange(geo.splits) * geo.chunk
+    ends = np.minimum(n, starts + geo.chunk)
+    assert starts[0] == 0 and ends[-1] == n and (ends > starts).all()
+    assert (starts[1:] == ends[:-1]).all() and geo.chunk % 128 == 0
+    assert geo.splits * -(-nq // geo.bq) <= 132  # one wave
+    if geo.route == "wgmma":
+        assert k <= 1024 and geo.shared_states
+        assert topk.knn_smem_bytes(geo.bq, d, k, form) <= 227 * 1024
+        return
+    assert geo.bq in (16, 32, 64, 128)
+    assert topk.knn_stream_smem_bytes(geo.bq, k, form,
+                                      geo.shared_states) <= 227 * 1024
+    fits = [b for b in (16, 32, 64, 128)
+            if topk.knn_stream_smem_bytes(b, k, form) <= 227 * 1024]
+    assert geo.shared_states == bool(fits)
+    if fits:
+        assert geo.bq == max(fits)  # 1000 queries: the largest tile that fits
+    if d > 2 * 1230:  # no wgmma tile holds such rows
+        assert geo.route == "stream"
 
 
 @pytest.mark.parametrize("G,m,n,sym", [(1024, 256, 256, True),

@@ -215,6 +215,64 @@ def test_scan_registry_path_matches_repro(distance):
     assert_scan_agree(gd, gs, wd, ws)
 
 
+@pytest.mark.parametrize("b,d,w,k", [(1000, 100, 384, 128), (1000, 100, 384, 1),
+                                     (9, 3, 1, 1), (7, 13, 33, 33),
+                                     (5, 101, 4096, 4096), (3, 100, 31, 10),
+                                     (1, 1536, 128, 128)])
+def test_scan_geometry_covers_every_query_and_slot_once(b, d, w, k):
+    """Each query has one block and ``wpq`` warps, whose 32-slot tiles
+    (warp j: tiles j, j + wpq, ...) cover its w slots once; the block's
+    shared memory fits and it has at most 8 warps."""
+    from repro_torch.kernels import quantized, topk
+
+    geo = quantized.scan_geometry(b, d, w, k)
+    assert geo.wpq in (1, 2, 4) and geo.wpq * geo.qpb <= 8
+    queries = [blk * geo.qpb + q for blk in range(geo.blocks)
+               for q in range(geo.qpb) if blk * geo.qpb + q < b]
+    assert queries == list(range(b))
+    tiles = -(-w // 32)
+    slots = sorted(s for j in range(geo.wpq) for t in range(j, tiles, geo.wpq)
+                   for s in range(32 * t, min(w, 32 * t + 32)))
+    assert slots == list(range(w))
+    assert topk.rank_smem_bytes(d, k, geo.wpq, geo.qpb) <= 227 * 1024
+    if (b, d, w, k) == (1000, 100, 384, 128):  # the two-stage path's scan
+        assert (geo.wpq, geo.qpb) == (4, 2)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 10, 128, 1000, 5000, 14_000])
+def test_scan_geometry_admits_what_the_block_merge_design_admitted(k):
+    """Every (d, k <= w) that the first scan.cu admitted, 4 (d + 4k + 256)
+    bytes within 227 KB, is admitted, up to its largest d; the geometry
+    raises only where one query's one-warp state does not fit, and says
+    the limit."""
+    from repro_torch.kernels import quantized, topk
+
+    limit = 227 * 1024
+    d_old = limit // 4 - 256 - 4 * k  # the largest d the old check took
+    for d in (1, 3, 101, d_old - 3, d_old - 1, d_old):
+        geo = quantized.scan_geometry(1000, d, max(k, 384), k)
+        assert topk.rank_smem_bytes(d, k, geo.wpq, geo.qpb) <= limit
+    d_new = max(d for d in range(d_old, d_old + 4 * k + 8)
+                if topk.rank_smem_bytes(d, k, 1, 1) <= limit)
+    quantized.scan_geometry(3, d_new, k, k)
+    with pytest.raises(ValueError, match=f"exceeds shared memory.*{limit}"):
+        quantized.scan_geometry(3, d_new + 4, k, k)
+
+
+@pytest.mark.parametrize("row_bytes,address,widest,vec", [
+    (100, 0, 16, 4), (50, 0, 16, 2), (13, 0, 4, 1), (200, 0, 16, 8),
+    (1536, 256, 16, 16), (100, 2, 16, 2), (7, 16, 16, 1), (16, 8, 16, 8),
+    (16, 0, 4, 4)])
+def test_scan_load_width_never_straddles_a_row(row_bytes, address, widest, vec):
+    """scan.cu reads ``vec`` bytes of a code row at a time: the widest (up
+    to ``widest``; binary's is 4) that divides the row stride (int8 100 B,
+    int4 50 B, binary 13 B, fp16 200 B at d = 100) and the table's
+    address."""
+    from repro_torch.kernels import quantized
+
+    assert quantized.load_width(row_bytes, address, widest) == vec
+
+
 def test_plain_scan_counts_no_launch():
     ops.reset_launch_counts()
     Q, codes, scales, ci, ok = _scan_case("int4")

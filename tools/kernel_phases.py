@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Where a CUDA kernel's time goes, on one GPU.
 
-    python3 tools/kernel_phases.py [--kernel knn|rank|pairwise] [--source FILE]
+    python3 tools/kernel_phases.py [--kernel knn|rank|pairwise|scan]
+                                   [--route wgmma|stream] [--source FILE]
 
 Builds copies of one kernel source under ``build/tools/`` and times each
 with CUDA events at the main path's shape (inputs are normal data from a
 seed), then prints one JSON object with the card's name and power limit:
 
 * ``knn`` (``csrc/knn.cu``; 1,000 queries against 1,000,000 rows, d = 100,
-  k = 10, l2 and dot): the kernel, a copy without its top-k epilogue (the
-  products alone) and a copy that counts ``clock64`` cycles a warp per
-  phase (wait for the ring and the block barrier, products, distances,
-  appends, merges, the tile's barrier).
+  k = 10, l2 and dot; with ``--route stream`` the streaming route at
+  chip_smoke.py's KNN_STREAM_SHAPE, 1,000 queries against 100,000 rows,
+  d = 1536): the kernel, a copy without its top-k epilogue (the products
+  alone), a copy that counts ``clock64`` cycles a warp per phase (wait
+  for the ring and the block barrier, products (with the stream route's
+  query split), distances, appends, merges, the tile's barrier) and, on
+  the stream route, a copy that does not promote its products (what the
+  fp32 promotion costs; its values drift past the tolerance rule).
 * ``rank`` (``csrc/rank.cu``; the leaf ranking of the main path: 1,000
   queries, 384 candidate slots each, ~30% unmasked, into the 1,000,000-row
   leaf table of an index built as chip_smoke.py builds it, d = 100, k = 10,
@@ -24,10 +29,16 @@ seed), then prints one JSON object with the card's name and power limit:
   triangle) and with a copy of X as Y (every tile)): the kernel and a copy
   that drops the output stores (what the products and the epilogue cost
   without them).
+* ``scan`` (``csrc/scan.cu``; stage 1 of the two-stage call: the leaf
+  candidate table of ``rank`` above, k = R = 128, l2, over the leaf points
+  quantised with block 256 as int8, fp16, int4 and binary codes): the
+  kernel and a copy that counts cycles a warp in the gather (code rows,
+  unpacking, distances), the block barriers and the top-k merges.
 
-``--source FILE`` (rank) also measures another version of rank.cu with the
-same C entry (e.g. the parent commit's file) in the same run, so that the
-two designs are compared on one card. Exits 2 without a GPU.
+``--source FILE`` (rank, scan) also measures another version of the
+kernel's source (e.g. the parent commit's file, any of its designs) in
+the same run, so that the two designs are compared on one card; the
+results of the two must be equal. Exits 2 without a GPU.
 """
 
 from __future__ import annotations
@@ -88,14 +99,19 @@ KNN_NOEPI = """    if (!last) continue;
 """
 
 
+KNN_STREAM_PROMOTED = "knn_tile<FORM, BQ, true, is_gram(FORM)>"
+
+
 def knn_instrumented(src: str) -> str:
     return edit(src, [
-        ("  for (int s = 0; s < steps; ++s) {\n    cp_wait<STAGES - 2>();\n"
-         "    __syncthreads();\n    issue(s + STAGES - 1);\n",
+        ("  for (int s = 0; s < steps; ++s) {\n    cp_wait<NST - 2>();\n"
+         "    if (TMA) mbar_wait(bar + s % NST, (s / NST) & 1);\n"
+         "    __syncthreads();\n    issue(s + NST - 1);\n",
          "  long long PH[8] = {}, T0, T1;\n"
          "  for (int s = 0; s < steps; ++s) {\n    T0 = clock64();\n"
-         "    cp_wait<STAGES - 2>();\n    __syncthreads();\n"
-         "    issue(s + STAGES - 1);\n    " + tick(0)),
+         "    cp_wait<NST - 2>();\n"
+         "    if (TMA) mbar_wait(bar + s % NST, (s / NST) & 1);\n"
+         "    __syncthreads();\n    issue(s + NST - 1);\n    " + tick(0)),
         ("    if (!last) continue;\n", "    " + tick(1) + "    if (!last) continue;\n"),
         ("    uint64_t done = 0;\n", "    " + tick(2) + "    uint64_t done = 0;\n"),
         ("      if (!__syncthreads_or(ready)) break;\n",
@@ -115,11 +131,13 @@ def knn_instrumented(src: str) -> str:
 RANK_PHASES = ["gather", "barrier", "merge"]
 
 
-def rank_instrumented(src: str) -> str:
-    """Cycle counters in either rank.cu design: the first (a block a query,
-    a warp a candidate, merge_tile per 128-slot tile) or the current one
-    (warps a query, a compacted gather, merges of a candidate buffer): the
-    gather and distances, the wait at block barriers, the top-k merges."""
+def rank_instrumented(src: str, what: str = "rank.cu") -> str:
+    """Cycle counters in any design of rank.cu or scan.cu: the first (a
+    block a query, a warp a candidate, merge_tile per 128-slot tile), PR
+    14's rank.cu (warps a query, a compacted gather, merges of a candidate
+    buffer, all in the file) or the current one (the same on topk.cuh):
+    the gather and distances, the wait at block barriers, the top-k
+    merges."""
     if "merge_tile(sd, si, nd, ni, td, ti, TILE, k);" in src:  # the first
         return edit(src, [
             ("  for (int t0 = 0; t0 < w; t0 += TILE) {\n",
@@ -134,7 +152,19 @@ def rank_instrumented(src: str) -> str:
              "    out_d[b * k + i] = sd[i];",
              FLUSH + "  for (int i = threadIdx.x; i < k; i += THREADS) {\n"
              "    out_d[b * k + i] = sd[i];"),
-        ], "rank.cu")
+        ], what)
+    if "top.make_room(STEP);" in src:  # the current design, on topk.cuh
+        return edit(src, [
+            ("  auto step = [&](int head, int take) {\n",
+             "  long long PH[8] = {}, T0 = clock64(), T1;\n"
+             "  auto step = [&](int head, int take) {\n"),
+            ("    top.make_room(STEP);",
+             "    " + tick(0) + "    top.make_room(STEP);\n    " + tick(2)),
+            ("  top.flush();\n", "  " + tick(0) + "  top.flush();\n  " + tick(2)),
+            ("  __syncthreads();\n  if (live) top.write_query(",
+             "  __syncthreads();\n  " + tick(1) + FLUSH
+             + "  if (live) top.write_query("),
+        ], what)
     return edit(src, [
         ("  const int tiles = live ? (w + 31) / 32 : 0;\n",
          "  long long PH[8] = {}, T0 = clock64(), T1;\n"
@@ -148,6 +178,10 @@ def rank_instrumented(src: str) -> str:
         ("  __syncthreads();\n  if (live && wi == 0) {\n",
          "  __syncthreads();\n  " + tick(1) + FLUSH + "  if (live && wi == 0) {\n"),
     ], "rank.cu")
+
+
+def scan_instrumented(src: str) -> str:
+    return rank_instrumented(src, "scan.cu")
 
 
 def rank_inputs(torch, rng, table: str):
@@ -238,13 +272,62 @@ def cycles(torch, lib, run, phases: list, warps: int) -> dict:
     return out
 
 
+def compare_designs(torch, out, sources, what, instrumented, signature_of,
+                    cases, time_ms) -> None:
+    """Build each design of ``what`` (``{tag: text}``) with its cycle
+    counting copy, then for each case ``{label: (args_of, outputs)}``
+    (``args_of(text)``: the C entry's arguments for a design) time them,
+    count their cycles, require each copy to give its kernel's result, and
+    say whether the designs agree bit for bit."""
+    libs = {}
+    for tag, text in sources.items():
+        libs.update(build(what, {f"{tag}_kernel": text,
+                                 f"{tag}_phases": instrumented(text)},
+                          signature_of(text)))
+    for label, (args_of, outputs) in cases.items():
+        res = out.setdefault(label, {"ms": {}, "cycles_per_warp": {}})
+        results = {}
+        runs = {}
+        for name, lib in libs.items():
+            text = sources[name.rsplit("_", 1)[0]]
+            runs[name] = (lambda lib=lib, a=args_of(text): _check(
+                getattr(lib, f"{what}_launch")(*a), what))
+            res["ms"][name] = time_ms(runs[name])
+            runs[name]()
+            results[name] = tuple(t.clone() for t in outputs)
+        for tag in sources:
+            per = cycles(torch, libs[f"{tag}_phases"], runs[f"{tag}_phases"],
+                         RANK_PHASES, 1)
+            slowest = per.pop("slowest_warp")
+            total = sum(per.values())
+            res["cycles_per_warp"][tag] = {
+                "share": {p: v / total for p, v in per.items()},
+                "total_cycles_all_warps": total, "slowest_warp": slowest}
+            if not all(torch.equal(a, b) for a, b in zip(
+                    results[f"{tag}_phases"], results[f"{tag}_kernel"])):
+                raise RuntimeError(f"{what} {tag}: the counting copy disagrees")
+        kernels = [results[f"{tag}_kernel"] for tag in sources]
+        res["designs_bit_equal"] = all(
+            torch.equal(a, b) for r in kernels[1:] for a, b in zip(r, kernels[0]))
+
+
+def _check(err: int, what: str) -> None:
+    from repro_torch.kernels import _build
+
+    _build.check(err, what)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("knn", "rank", "pairwise"), default="knn")
-    ap.add_argument("--source", help="another version of rank.cu, measured "
-                    "beside it")
+    ap.add_argument("--kernel", choices=("knn", "rank", "pairwise", "scan"),
+                    default="knn")
+    ap.add_argument("--route", choices=("wgmma", "stream"), default="wgmma",
+                    help="knn's route (stream: at KNN_STREAM_SHAPE)")
+    ap.add_argument("--source", help="another version of rank.cu or scan.cu, "
+                    "measured beside it")
     ap.add_argument("--table", choices=("real", "synthetic"), default="real",
-                    help="rank's candidate table (default: the main path's)")
+                    help="rank's and scan's candidate table (default: the "
+                    "main path's)")
     args = ap.parse_args()
     import torch
 
@@ -275,23 +358,32 @@ def main() -> int:
     src = (_build.CSRC / f"{args.kernel}.cu").read_text()
     sources = {"current": src}
     if args.source:
-        if args.kernel != "rank":
-            raise SystemExit("--source is for --kernel rank")
+        if args.kernel not in ("rank", "scan"):
+            raise SystemExit("--source is for --kernel rank or scan")
         with open(args.source) as f:
             sources["source"] = f.read()
 
     if args.kernel == "knn":
         if src.count("    if (!last) continue;\n") != 1:
             raise RuntimeError("knn.cu changed; no single epilogue anchor")
-        libs = build("knn", {"kernel": src, "products": src.replace(
-            "    if (!last) continue;\n", KNN_NOEPI), "phases": knn_instrumented(src)},
-            topk._KNN)
-        Q = torch.from_numpy(rng.normal(size=(1000, 100)).astype(np.float32)).cuda()
-        DB = torch.from_numpy(rng.normal(size=(1_000_000, 100)).astype(np.float32)).cuda()
-        geo = topk.knn_geometry(1000, DB.shape[0], 100, 10, "l2",
+        variants = {"kernel": src, "products": src.replace(
+            "    if (!last) continue;\n", KNN_NOEPI), "phases": knn_instrumented(src)}
+        if args.route == "stream":
+            if src.count(KNN_STREAM_PROMOTED) != 1:
+                raise RuntimeError("knn.cu changed; no single stream anchor")
+            variants["unpromoted"] = src.replace(KNN_STREAM_PROMOTED,
+                                                 "knn_tile<FORM, BQ, true, false>")
+        libs = build("knn", variants, topk._KNN)
+        nq, n, d = (1000, 1_000_000, 100) if args.route == "wgmma" \
+            else (1000, 100_000, 1536)  # chip_smoke.py's KNN_STREAM_SHAPE
+        Q = torch.from_numpy(rng.normal(size=(nq, d)).astype(np.float32)).cuda()
+        DB = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).cuda()
+        geo = topk.knn_geometry(nq, n, d, 10, "l2",
                                 torch.cuda.get_device_properties(0).multi_processor_count)
-        warps = geo.splits * -(-1000 // geo.bq) * 8
-        out.update(shape=[1000, DB.shape[0], 100, 10], geometry=geo._asdict())
+        if geo.route != args.route:
+            raise RuntimeError(f"[{nq}, {n}, {d}] takes the {geo.route} route")
+        warps = geo.splits * -(-nq // geo.bq) * 8
+        out.update(shape=[nq, n, d, 10], geometry=geo._asdict())
         for form in ("l2", "dot"):
             for name, lib in libs.items():
                 _build._libs["knn"] = lib
@@ -301,51 +393,58 @@ def main() -> int:
             out["cycles_per_warp"][form] = cycles(
                 torch, libs["phases"], lambda: topk.knn_cuda(Q, DB, 10, form),
                 KNN_PHASES, warps)
-    elif args.kernel == "rank":
+    elif args.kernel in ("rank", "scan"):
         x = rank_inputs(torch, rng, args.table)
         b, w = x["idx"].shape
         per_query = x["ok"].sum(1)
-        out.update(shape=[b, w, 100, 10], table=args.table,
+        k = 10 if args.kernel == "rank" else 128  # scan: k = R = 128
+        out.update(shape=[b, w, 100, k], table=args.table,
                    unmasked=int(per_query.sum()),
                    unmasked_per_query={"mean": float(per_query.float().mean()),
                                        "max": int(per_query.max())},
                    points_16B_aligned=x["P"].data_ptr() % 16 == 0)
-        od = torch.empty((b, 10), device="cuda")
-        os_ = torch.empty((b, 10), device="cuda", dtype=torch.int32)
+        od = torch.empty((b, k), device="cuda")
+        os_ = torch.empty((b, k), device="cuda", dtype=torch.int32)
         stream = torch.cuda.current_stream().cuda_stream
-        head = [x["Q"].data_ptr(), x["P"].data_ptr(), x["sq"].data_ptr(),
-                x["idx"].data_ptr(), x["ok"].data_ptr(), od.data_ptr(),
-                os_.data_ptr(), b, x["P"].shape[0], 100, w, 10, FORMS.index("l2")]
-        geo = topk.rank_geometry(b, 100, w, 10)
-        runs, libs = {}, {}
-        for tag, text in sources.items():
-            # the current entry takes the block shape; the first design's none
-            extra = [geo.wpq, geo.qpb] if tag == "current" else []
-            sig = {"rank_launch": [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * (6 + len(extra)) + [ctypes.c_void_p]}
-            built = build("rank", {f"{tag}_kernel": text,
-                                   f"{tag}_phases": rank_instrumented(text)}, sig)
-            for name, lib in built.items():
-                libs[name] = lib
-                runs[name] = (lambda lib=lib, extra=extra: _build.check(
-                    lib.rank_launch(*head, *extra, stream), "rank"))
-        results = {}
-        for name, run in runs.items():
-            out["ms"][name] = time_ms(run)
-            run()
-            results[name] = (od.clone(), os_.clone())
-        for tag in sources:
-            per = cycles(torch, libs[f"{tag}_phases"], runs[f"{tag}_phases"],
-                         RANK_PHASES, 1)
-            slowest = per.pop("slowest_warp")
-            total = sum(per.values())
-            out["cycles_per_warp"][tag] = {
-                "share": {p: v / total for p, v in per.items()},
-                "total_cycles_all_warps": total, "slowest_warp": slowest}
-        for name, (d_, s_) in results.items():  # a copy agrees with its kernel
-            ref = results[name.split("_")[0] + "_kernel"]
-            if not (torch.equal(d_, ref[0]) and torch.equal(s_, ref[1])):
-                raise RuntimeError(f"rank variant {name} disagrees with its kernel")
+        geo = topk.rank_geometry(b, 100, w, k)
+        # a design that takes the block shape ends its C entry with it
+        shaped = lambda text: "int wpq, int qpb" in text  # noqa: E731
+        if args.kernel == "rank":
+            head = [x["Q"].data_ptr(), x["P"].data_ptr(), x["sq"].data_ptr(),
+                    x["idx"].data_ptr(), x["ok"].data_ptr(), od.data_ptr(),
+                    os_.data_ptr(), b, x["P"].shape[0], 100, w, k,
+                    FORMS.index("l2")]
+            compare_designs(
+                torch, out, sources, "rank", rank_instrumented,
+                lambda text: {"rank_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int]
+                              * (6 + 2 * shaped(text)) + [ctypes.c_void_p]},
+                {"l2": (lambda text: head + ([geo.wpq, geo.qpb] if shaped(text)
+                                             else []) + [stream], (od, os_))},
+                time_ms)
+        else:
+            from repro_torch.kernels import quantized
+            from repro_torch.store import quantize
+
+            cases = {}
+            for backend, fmt, container in (("int8", "dense", 0), ("fp16", "dense", 1),
+                                            ("int4", "int4", 2), ("binary", "binary", 3)):
+                codes, scales = quantize(x["P"], backend, 256)
+                vec = quantized.load_width(codes.shape[1] * codes.element_size(),
+                                           codes.data_ptr(), 4 if fmt == "binary" else 16)
+                head = [x["Q"].data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                        x["idx"].data_ptr(), x["ok"].data_ptr(), od.data_ptr(),
+                        os_.data_ptr(), b, codes.shape[0], scales.shape[0], 256,
+                        100, codes.shape[1], w, k, FORMS.index("l2"), container]
+                cases[backend] = (
+                    lambda text, head=head, vec=vec, codes=codes, scales=scales:
+                    head + ([geo.wpq, geo.qpb, vec] if shaped(text) else [])
+                    + [stream], (od, os_))
+                out[f"{backend}_load_bytes"] = vec
+            compare_designs(
+                torch, out, sources, "scan", scan_instrumented,
+                lambda text: {"scan_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int]
+                              * (10 + 3 * shaped(text)) + [ctypes.c_void_p]},
+                cases, time_ms)
     else:
         variants = {}
         for tag, text in sources.items():
