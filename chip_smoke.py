@@ -22,7 +22,12 @@ result line):
    longest), and on its streaming route (d = 1536 and 4096 in every form,
    k = 33, 100 and 1024, and the largest k it admits, its states in device
    memory, at d = 100 and 1536); swap_deltas also at g = 300, k = 1 and
-   with every row of one slot masked; the scan kernel over every form x
+   with every row of one slot masked, and past g = 1,456 at (g, k) =
+   (1,457, 728), (2,048, 1,024) and (4,096, 2,048) (its slot-split
+   layout); pairwise also at [1024, 256, 100] x [1024, 128, 100] (X not
+   Y: the k-means relabel); rank and scan at k = 1 through the ops with a
+   ``slot_valid`` mask that kills every slot of one query (the online
+   routing); the scan kernel over every form x
    {int8, fp16, int4, binary}, ragged shapes, w = 1, a ``slot_valid``
    mask, and d = 3, 13, 100 and 101 at w = 384 with k = 1, 10, 128 and
    w, a row with fewer unmasked slots than k and one table row in two
@@ -30,8 +35,9 @@ result line):
    bit-identical.
    Then the card's build against the port's CPU build: integer-valued
    dense_embed-shaped data (n = 20,000, d = 100, values in [0, 64)),
-   gl = 256, euclidean, pam, no shuffle, equal level by level; a
-   real-valued 50,000-row slice with level-0 TD within 1%.
+   gl = 256, euclidean, pam, no shuffle, equal level by level, and each
+   level's fp64 sum of its points' distances to their medoids within rtol
+   1e-6; a real-valued 50,000-row slice with level-0 TD within 1%.
 3. The main path at a real size: ``dense_embed`` (a GloVe-100-sized
    surrogate), n = 1,000,000, d = 100, built with gl = 256, euclidean,
    ``method="pam"``; 1,000 held-out queries through
@@ -63,6 +69,29 @@ result line):
    and one library call there); rank also summed over one beam search's
    launches (from the profile). The scan kernel at the storage path's
    shapes in each of its four code formats.
+   Then k-means and its users: ``method="kmeans"`` at n = 1M, gl = 256
+   (the port's own ``check_index_invariants``, level TDs all 0, recall@10
+   beside the pam build's); pam at gl = 2048 (k = 1024) on 200,000 rows
+   (swap_deltas's split slots on the build path); IVF-Flat at 1M with
+   n_cells = n // 256 and n_probe = 8 (build s, query s, recall@10).
+   Then the online tiers on a copy of the 1M index (``from_arrays`` of
+   its arrays): 2,048 upserts of resident rows + N(0, 0.05) noise in 16
+   batches of 128, 256 replacements, 1,024 resident deletes and 256
+   deletes of upserted ids through ``EpochHandle.apply_writes``;
+   ``needs_compaction()`` true; 1,000 queries through
+   ``plan(Query(k=10))`` with the delta leg and the tombstone mask: no
+   deleted id, an upserted vector finds itself first, card == CPU on 256
+   queries, recall@10 within 0.02 of a fresh build on the live set;
+   ``compact(scope="affected")`` and ``"full"``: invariants, untouched
+   groups bit-identical, the share of changed groups, the dense exact
+   search equal to exact_knn over the live set as sets; writes/s, q/s
+   under churn and frozen, both compaction times. After the store phase
+   the same stream at 1/8 its size on the released int8 index: routing
+   by the scan at k = 1, two-stage under the mask, an affected compaction
+   whose ``LeafStore.rebuild`` writes a fresh file and keeps the
+   unchanged blocks' codes (the share re-quantised printed). Launch
+   counts are zeroed before each of these phases and read after it:
+   every kernel of the phase's path must have launched.
 5. Recall against the record: dense_embed n = 7,800, gl = 256, euclidean,
    beam 32 must reach recall@10 >= 0.85.
 6. The quickstart on the card: euclidean, manhattan, chebyshev and cosine
@@ -75,8 +104,10 @@ through the square root); top-k ids agree except among entries whose
 distances lie within that tolerance of each other. TF32 is off for every
 matrix product (``allow_tf32 = False``, matmul precision "highest").
 
-The last three lines are the kernels' JSON record, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last three lines are the kernels' JSON record (each kernel's
+``launches`` on the main path, and under ``phase_launches`` its launches
+in each phase's own run), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -106,6 +137,7 @@ PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense
 PEAK_GRAM = max(PEAK_FP32, PEAK_TF32 / 3)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 BIG = 1e30
+PHASE_LAUNCHES: dict = {}  # phase -> launch counts of its own run
 
 KNN_CASES = [  # (q, n, d, k): ragged against every tile, q = 1 and 129
     (37, 1000, 13, 10), (16, 129, 100, 1), (3, 300, 5, 300), (70, 5000, 64, 32),
@@ -120,7 +152,8 @@ PAIRWISE_CASES = [  # (G, m, n, d, X is Y): ragged against the 128-row tile
     (1, 37, 91, 13, False), (3, 70, 65, 100, False), (1, 1, 129, 2, False),
     (2, 64, 64, 16, False), (1, 1, 37, 1, False), (3, 37, 129, 3, False),
     (1, 129, 300, 13, False), (3, 300, 1, 100, False), (1, 37, 129, 1536, False), (3, 129, 129, 100, True),
-    (1, 300, 300, 1536, True), (3, 37, 37, 13, True), (1024, 256, 256, 100, True)]
+    (1, 300, 300, 1536, True), (3, 37, 37, 13, True), (1024, 256, 256, 100, True),
+    (1024, 256, 128, 100, False)]  # the k-means relabel: groups x their medoids
 PAIRWISE_INT_CASES = [  # (G, m, n, d, |x| <, X is Y): every sum below 2^24
     (3, 129, 300, 3, 2048, False), (2, 256, 256, 100, 64, True),
     (1, 37, 129, 1536, 64, False), (1, 300, 300, 1536, 64, True)]
@@ -129,9 +162,10 @@ RANK_CASES = [  # (b, w, d, k, n), then every RANK_WIDTHS x k in {1, 10, w}
     (9, 1, 3, 1, 5)]
 RANK_WIDTHS = (1, 31, 33, 384, 4096)
 RANK_DIMS = (3, 100, 1536)
-SWAP_CASES = [  # (G, g, k): g = 300 is ragged against the 64-column tile
+SWAP_CASES = [  # (G, g, k): g = 300 is ragged against the 64-column tile;
     (3, 50, 7), (2, 256, 128), (1, 33, 1), (5, 100, 50), (2, 300, 64),
-    (3, 300, 1)]
+    (3, 300, 1),  # past g = 1,456: staged in chunks, then the slots split
+    (2, 1457, 728), (1, 2048, 1024), (1, 4096, 2048)]
 KERNELS = {
     "pairwise": ("src/repro_torch/csrc/pairwise.cu",
                  "src/repro/kernels/pairwise.py:168"),
@@ -144,10 +178,28 @@ KERNELS = {
 }
 BEAM_PATH_KERNELS = ("pairwise", "rank", "knn", "swap_deltas")  # phase 3
 STORE_PATH_KERNELS = ("scan", "rank")  # the two-stage call
+# the new phases' windows: each zeroes the counts just before its own work
+# and requires these kernels just after it
+WINDOW_KERNELS = {
+    "kmeans-build": ("pairwise",),  # Lloyd relabel of the snapped medoids
+    "kmeans-search": ("rank",),  # beam 32 on the k-means index
+    "kmeans-truth": ("knn",),  # exact_knn for its recall
+    "pam-gl2048": ("pairwise", "swap_deltas"),  # the split slot blocks
+    "ivf": ("pairwise",),  # IVF-Flat build and search
+    "online-writes": ("rank",),  # routing: beam-1 descent, rank at k = 1
+    "online-search": ("pairwise", "rank"),  # delta scan, masked leaf rank
+    "online-truth": ("knn",),  # exact_knn over the live set
+    "online-compact": ("pairwise", "swap_deltas"),  # both scopes
+    "online-compacted": ("rank",),  # the compacted epochs' searches
+    "store-churn-writes": ("rank", "scan"),  # routing through scan, k = 1
+    "store-churn-search": ("pairwise", "rank", "scan"),  # two-stage + legs
+    "store-churn-compact": ("pairwise", "swap_deltas"),  # + LeafStore.rebuild
+}
 SYMBOLS = {  # each kernel's __global__ functions
     "pairwise": ("pairwise_kernel",), "rank": ("rank_kernel",),
     "knn": ("knn_kernel", "knn_stream_kernel", "knn_split_kernel", "knn_merge_kernel"),
-    "swap_deltas": ("swap_order_kernel", "swap_kernel"), "scan": ("scan_kernel",)}
+    "swap_deltas": ("swap_order_kernel", "swap_kernel", "swap_finish_kernel"),
+    "scan": ("scan_kernel",)}
 KERNEL_SYMBOLS = tuple(s for syms in SYMBOLS.values() for s in syms)
 STORE_BLOCK = 256  # bench_store.py's full-run block size
 RERANK_WIDTH = 128  # Query's default rerank_width
@@ -158,6 +210,10 @@ SCAN_CASES = [  # (b, w, d, k, n, block): ragged shapes, then SCAN_DIMS x k
     (4, 130, 100, 7, 1000, 256), (9, 1, 3, 1, 5, 2)]
 SCAN_DIMS = (3, 13, 100, 101)  # odd d: a padded int4 nibble, part-filled bytes
 SCAN_WIDTH = 384  # the two-stage path's leaf candidate width
+N_BIG_GL = 200_000  # rows of the gl = 2048 build
+IVF_PROBE = 8  # bench_recall.py: n_cells = n // 256, n_probe = 8
+CHURN = dict(upserts=2048, batch=128, replace=256, delete=1024,
+             delete_upserted=256)  # the online phase's write stream
 
 
 class CheckFailed(RuntimeError):
@@ -365,6 +421,9 @@ def phase_parity() -> dict:
         errs["knn"] = max(errs["knn"], parity_knn(Q, DB, 50, form, src))
 
     errs["scan"] = parity_scan(rng)
+    k1 = parity_masked_k1(rng)
+    errs["rank"] = max(errs["rank"], k1["rank"])
+    errs["scan"] = max(errs["scan"], k1["scan"])
 
     for G, g, k in SWAP_CASES:
         D = _cuda(np.abs(rng.normal(size=(G, g, g))).astype(np.float32))
@@ -597,14 +656,84 @@ def parity_scan(rng) -> float:
     return err
 
 
+def parity_masked_k1(rng) -> dict:
+    """rank and scan at k = 1 (the online tiers' routing) through the ops
+    with a ``slot_valid`` mask that kills every slot of query 0 and a
+    fifth of the table, at the path's width w = 384, d = 100, every form:
+    query 0 finds nothing (``BIG``), the rest agree with the plain
+    versions on the folded mask, and repeat calls are bit-identical.
+    Returns the max error per kernel."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.store import quantize
+
+    b, w, d, n = 64, SCAN_WIDTH, 100, 5000
+    P = _cuda(rng.normal(size=(n, d)).astype(np.float32))
+    sq = (P * P).sum(-1)
+    Q = _cuda(rng.normal(size=(b, d)).astype(np.float32))
+    idx = _cuda(rng.integers(0, n, size=(b, w)).astype(np.int32))
+    ok = _cuda(rng.random((b, w)) > 0.3)
+    live = _cuda(rng.random(n) > 0.2)
+    live[idx[0].long()] = False  # every slot of query 0 is dead
+    folded = ref.fold_slot_valid(idx, ok, live)
+    codes, scales = quantize(P, "int8", STORE_BLOCK)
+    errs = {"rank": 0.0, "scan": 0.0}
+    for form in ref.FORMS:
+        runs = {
+            "rank": (lambda: ops.rank_gathered(Q, P, sq, idx, ok, form, k=1,
+                                               slot_valid=live),
+                     ref.rank_gathered_ref(Q, P, sq, idx, folded, 1, form),
+                     lambda s: ref.rowwise_ref(Q, P[s], form, sq[s])),
+            "scan": (lambda: ops.scan_quantized(
+                Q, codes, scales, idx, ok, form, k=1, block=STORE_BLOCK,
+                slot_valid=live),
+                ref.scan_gathered_ref(Q, codes, scales, STORE_BLOCK, idx,
+                                      folded, 1, form),
+                None)}
+        for name, (kernel, (rd, rs), again_of) in runs.items():
+            kd, ks = kernel()
+            require(float(kd[0, 0]) >= BIG / 2,
+                    f"{name} {form} k=1: a dead query found slot "
+                    f"{int(ks[0, 0])}")
+            if again_of is None:
+                again = torch.gather(scan_rows(Q, codes, scales, STORE_BLOCK,
+                                               idx, form, "dense"), 1,
+                                     ks.long())
+            else:
+                again = again_of(torch.gather(idx, 1, ks.long()).long())
+            errs[name] = max(errs[name], topk_agree(
+                kd.cpu(), ks.cpu(), rd.cpu(), rs.cpu(), again.cpu()))
+            kd2, ks2 = kernel()
+            require(bool(torch.equal(kd, kd2) and torch.equal(ks, ks2)),
+                    f"{name} {form} k=1 with slot_valid differs run to run")
+    log(f"[parity] rank and scan at k=1, slot_valid killing query 0: "
+        f"{json.dumps(errs)}")
+    return errs
+
+
+def level_sums(idx) -> list:
+    """fp64 sums, on the index's own device, of each clustered level's
+    per-point distances to its medoid (its parent): the level TDs of a
+    k-medoids build, summed without fp32's order dependence."""
+    sums = []
+    for l in range(idx.n_levels - 1):
+        lv, up = idx.data.levels[l], idx.data.levels[l + 1]
+        par = lv.parent.long().clamp(0, up.points.shape[0] - 1)
+        dd = idx.distance.point(lv.points, up.points[par])
+        sums.append(float(dd[lv.valid].double().sum()))
+    return sums
+
+
 def phase_build_parity(data: np.ndarray) -> dict:
     """The card's build against the port's CPU build. Integer-valued
     dense_embed-shaped data (the first 20,000 rows scaled to integers in
     [0, 64): every Gram sum is exact in fp32, so both devices compute the
     same distances), gl = 256, euclidean, pam, no shuffle: the level sizes
     and every level's arrays (the medoids' slots, parents and children)
-    must be equal, and the level TDs within rtol 1e-6 (sums of the same
-    distances in another order). Then a real-valued 50,000-row slice of
+    must be equal, and each level's fp64 sum of its per-point distances to
+    their medoids, taken on each build's device, within rtol 1e-6 (the
+    builds' fp32 level TDs sum 20,000 terms in another order each, and are
+    printed only). Then a real-valued 50,000-row slice of
     the main data: level-0 TD within 1% (rounding-level near-ties in
     k-medoids may go the other way). Also ``core.build_index`` called
     without a device must build on CUDA."""
@@ -631,12 +760,13 @@ def phase_build_parity(data: np.ndarray) -> dict:
                     f"integer build: level {l} {f} differs card vs CPU")
     require(bool(torch.equal(card.data.leaf_ids.cpu(), cpu.data.leaf_ids)),
             "integer build: leaf ids differ card vs CPU")
-    np.testing.assert_allclose(card.stats.level_td, cpu.stats.level_td,
-                               rtol=1e-6)
+    card_sums, cpu_sums = level_sums(card), level_sums(cpu)
+    np.testing.assert_allclose(card_sums, cpu_sums, rtol=1e-6)
     log(f"[build-parity] integer dense_embed n={len(xi)} gl=256 euclidean "
         f"pam: card == CPU level by level, levels {card.stats.level_sizes}, "
-        f"TD {[round(t, 3) for t in card.stats.level_td]} (card {card_s:.2f} "
-        f"s, CPU {cpu_s:.2f} s)")
+        f"fp64 level sums card {card_sums}, CPU {cpu_sums}; fp32 TDs card "
+        f"{list(card.stats.level_td)}, CPU {list(cpu.stats.level_td)} (card "
+        f"{card_s:.2f} s, CPU {cpu_s:.2f} s)")
 
     # the build's core entry point without a device runs on the card
     from repro_torch.core import build_index
@@ -704,6 +834,7 @@ def phase_main_path(data: np.ndarray, test: np.ndarray) -> dict:
     log(f"[main] {len(test)} queries, beam 32, k=10: {search_s:.4f} s "
         f"({len(test) / search_s:.1f} queries/s, first call), "
         f"recall@10 {rec:.4f}; exact_knn {exact_s:.4f} s")
+    PHASE_LAUNCHES["main"] = counts
     log(f"[main] kernel launches on the main path: {json.dumps(counts)}")
     for name in BEAM_PATH_KERNELS:
         require(counts[name] > 0,
@@ -781,17 +912,7 @@ def phase_cpu_check(main: dict) -> None:
     from repro_torch.core.index import PDASCIndex
     from repro_torch.query import Query
 
-    idx = main["idx"]
-    arrays = {"leaf_ids": idx.data.leaf_ids.cpu().numpy()}
-    for l, lv in enumerate(idx.data.levels):
-        for f in lv._fields:
-            arrays[f"level{l}_{f}"] = getattr(lv, f).cpu().numpy()
-    meta = dict(n_levels=idx.n_levels, level_sizes=idx.stats.level_sizes,
-                level_td=idx.stats.level_td, distance=idx.distance.name,
-                gl=idx.gl, n_prototypes=idx.n_prototypes,
-                max_children=idx.max_children,
-                default_radius=idx.default_radius)
-    cpu = PDASCIndex.from_arrays(arrays, meta, device="cpu")
+    cpu = PDASCIndex.from_arrays(*main["idx"].to_arrays(), device="cpu")
     Q = main["Qc"][:N_CPU_CHECK].cpu()
     t0 = time.perf_counter()
     want = cpu.plan(Query(k=10))(Q)
@@ -1085,7 +1206,7 @@ def phase_store(main: dict, workdir: str) -> dict:
     res2 = plan(Qc)
     torch.cuda.synchronize()
     second_s = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = PHASE_LAUNCHES["store"] = ops.launch_counts()
     require(torch.equal(res.ids, res2.ids), "two-stage is not repeatable")
     log(f"[store] kernel launches on the two-stage path (2 calls): "
         f"{json.dumps(counts)}")
@@ -1205,6 +1326,447 @@ def phase_scan_timing(main: dict, store: dict) -> dict:
                 formats=formats)
 
 
+def launched(phase: str, names=None) -> dict:
+    """Read the launch counts after ``phase`` (zeroed just before it),
+    keep them for the kernels line, and fail for a kernel of the phase's
+    path (``names``, by default its ``WINDOW_KERNELS`` entry) that never
+    launched."""
+    from repro_torch.kernels import ops
+
+    names = WINDOW_KERNELS[phase] if names is None else names
+    counts = ops.launch_counts()
+    PHASE_LAUNCHES[phase] = counts
+    log(f"[{phase}] kernel launches: {json.dumps(counts)}")
+    for name in names:
+        require(counts[name] > 0, f"kernel {name} never launched in {phase}")
+    return counts
+
+
+def start_phase() -> None:
+    import torch
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+
+def sync_s(t0: float) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_kmeans(data: np.ndarray, test: np.ndarray, main: dict) -> dict:
+    """The k-means build at the main path's size and its two users beside
+    it: ``method="kmeans"`` at n = 1M, gl = 256 (invariants, level TDs of
+    0, recall@10 of beam 32 beside the pam build's); a pam build at
+    gl = 2048 on a 200,000-row slice (swap_deltas past g = 1,456, the
+    split slots); and IVF-Flat at 1M with bench_recall.py's n_cells =
+    n // 256 and n_probe = 8."""
+    from repro_torch.baselines import IVFFlatIndex, exact_knn
+    from repro_torch.core.index import PDASCIndex
+    from repro_torch.core.reference_impl import check_index_invariants
+    from repro_torch.query import Query
+
+    Qc = main["Qc"]
+    start_phase()
+    t0 = time.perf_counter()
+    idx = PDASCIndex.build(data, gl=256, distance="euclidean", method="kmeans",
+                           radius_quantile=0.35, group_chunk=GROUP_CHUNK,
+                           device="cuda")
+    build_s = sync_s(t0)
+    launched("kmeans-build")
+    errs = check_index_invariants(idx.data)
+    require(errs == [], f"k-means build: {errs[:5]}")
+    require(all(t == 0.0 for t in idx.stats.level_td),
+            f"k-means level TDs {idx.stats.level_td} are not all 0")
+    start_phase()
+    _, gt = exact_knn(Qc, data, k=10, device="cuda")
+    gt = gt.cpu().numpy()
+    launched("kmeans-truth")
+    start_phase()
+    res = idx.plan(Query(k=10))(Qc)
+    rec = recall(res.ids.cpu().numpy(), gt)
+    launched("kmeans-search")
+    log(f"[kmeans] dense_embed n={len(data)} gl=256 euclidean kmeans: build "
+        f"{build_s:.3f} s, levels {idx.stats.level_sizes}, invariants hold, "
+        f"level TDs all 0; recall@10 beam 32 {rec:.4f} (pam build "
+        f"{main['recall']:.4f})")
+    del idx, res
+    profile_breakdown(
+        f"k-means build n={N_BIG_GL}",
+        lambda: PDASCIndex.build(data[:N_BIG_GL], gl=256, method="kmeans",
+                                 group_chunk=GROUP_CHUNK, device="cuda"))
+
+    big = data[:N_BIG_GL]
+    start_phase()
+    t0 = time.perf_counter()
+    idx = PDASCIndex.build(big, gl=2048, distance="euclidean", method="pam",
+                           radius_quantile=0.35, group_chunk=64,
+                           device="cuda")
+    big_s = sync_s(t0)
+    launched("pam-gl2048")
+    errs = check_index_invariants(idx.data)
+    require(errs == [], f"gl=2048 build: {errs[:5]}")
+    log(f"[kmeans] pam gl=2048 (k=1024) on n={len(big)}: build {big_s:.3f} "
+        f"s, levels {idx.stats.level_sizes}, invariants hold")
+    del idx
+
+    n_cells = len(data) // 256
+    start_phase()
+    t0 = time.perf_counter()
+    ivf = IVFFlatIndex.build(data, n_cells=n_cells, device="cuda")
+    ivf_build_s = sync_s(t0)
+    t0 = time.perf_counter()
+    _, ivf_ids = ivf.search(test, k=10, n_probe=IVF_PROBE)
+    ivf_query_s = sync_s(t0)
+    launched("ivf")
+    ivf_rec = recall(ivf_ids, gt)
+    require(np.isfinite(ivf_rec) and ivf_rec > 0, "IVF-Flat found nothing")
+    log(f"[kmeans] IVF-Flat n={len(data)} n_cells={n_cells} "
+        f"n_probe={IVF_PROBE}: build {ivf_build_s:.3f} s, {len(test)} "
+        f"queries {ivf_query_s:.4f} s ({len(test) / ivf_query_s:.1f} "
+        f"queries/s), recall@10 {ivf_rec:.4f}")
+    return dict(build_s=build_s, recall=rec, big_s=big_s,
+                ivf_build_s=ivf_build_s, ivf_query_s=ivf_query_s,
+                ivf_recall=ivf_rec)
+
+
+def churn_ops(rng, data, leaf_ids, scale: int = 1):
+    """The write stream of the online phases (``CHURN`` / ``scale``):
+    upserts of resident rows plus N(0, 0.05) noise in batches,
+    replacements of resident ids, and deletes of other resident ids.
+    Returns ``(upsert ops, replacement op, resident deletes)``."""
+    c = {k: v // scale for k, v in CHURN.items()}
+    d = data.shape[1]
+    src = rng.choice(len(data), c["upserts"], replace=False)
+    new = data[src] + rng.normal(0, 0.05, size=(len(src), d)).astype(np.float32)
+    ups = [("upsert", new[i:i + c["batch"]])
+           for i in range(0, len(new), c["batch"])]
+    ids = rng.choice(leaf_ids, c["replace"] + c["delete"], replace=False)
+    rep_ids, dead = ids[:c["replace"]], ids[c["replace"]:]
+    rep = data[rep_ids] + rng.normal(0, 0.05, size=(len(rep_ids), d)).astype(
+        np.float32)
+    return ups, ("upsert", (rep, rep_ids.astype(np.int32))), dead, c
+
+
+def apply_churn(handle, ups, rep, dead, c, rng) -> dict:
+    """Drive the stream through ``EpochHandle.apply_writes`` (every op must
+    succeed); returns the upserted ids, the deleted ids and the time."""
+    t0 = time.perf_counter()
+    out = handle.apply_writes(ups + [rep])
+    bad = [o for o in out if isinstance(o, Exception)]
+    require(not bad, f"writes failed: {bad[:3]}")
+    upserted = np.concatenate(out[:len(ups)])
+    dead_up = rng.choice(upserted, c["delete_upserted"], replace=False)
+    out = handle.apply_writes([("delete", dead), ("delete", dead_up)])
+    require(out == [len(dead), len(dead_up)], f"deletes removed {out}")
+    write_s = sync_s(t0)
+    n_ops = len(upserted) + len(rep[1][1]) + len(dead) + len(dead_up)
+    return dict(upserted=upserted, deleted=np.concatenate([dead, dead_up]),
+                dead_up=dead_up, write_s=write_s, n_ops=n_ops)
+
+
+def check_self_found(plan, idx, upserted, deleted) -> None:
+    """A query equal to a live upserted vector returns its own id first."""
+    import torch
+
+    alive = np.setdiff1d(upserted, deleted)[:64]
+    pos = np.nonzero(np.isin(idx.delta.ids[:idx.delta.size], alive)
+                     & idx.delta.active[:idx.delta.size])[0]
+    res = plan(torch.from_numpy(idx.delta.vectors[pos]).cuda())
+    require(np.array_equal(res.ids[:, 0].cpu().numpy(), idx.delta.ids[pos]),
+            "an upserted vector does not find itself first")
+
+
+def check_exact_sets(res, gd, gt) -> None:
+    """A dense exact search (radius 1e9) against exact_knn over the live
+    set, as sets: an id in one and not the other must sit at the k-th
+    place's distance, within the tolerance rule (l2 compared squared)."""
+    ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+    atol = atol_of(gd * gd)
+    for q in range(len(gt)):
+        diff = set(ids[q].tolist()) ^ set(gt[q].tolist())
+        if diff:
+            kth = max(float(gd[q, -1]), float(dists[q, -1])) ** 2
+            near = [float(x) ** 2 for i, x in zip(ids[q], dists[q]) if i in diff]
+            near += [float(x) ** 2 for i, x in zip(gt[q], gd[q]) if i in diff]
+            require(all(abs(x - kth) <= atol + 1e-5 * kth for x in near),
+                    f"query {q}: exact search {sorted(ids[q])} != "
+                    f"exact_knn {sorted(gt[q])}")
+
+
+def phase_online(main: dict, data: np.ndarray, workdir: str) -> dict:
+    """The online tiers on a copy of the main 1M index (``from_arrays`` of
+    its arrays, so phases 3 and 4 keep measuring the frozen index): the
+    ``beam_vmap`` plan on the clean copy against the beam plan, then the
+    CHURN write stream through ``EpochHandle.apply_writes`` (its swap
+    policy off: this phase compacts by hand), the default plan with the
+    delta leg and the tombstone mask, a save / load of the churned index
+    (format v3) in ``workdir``, compaction of both scopes. Launch counts
+    are read per window (``WINDOW_KERNELS``)."""
+    import torch
+    from repro_torch.baselines import exact_knn
+    from repro_torch.core.index import PDASCIndex
+    from repro_torch.core.reference_impl import check_index_invariants
+    from repro_torch.online import EpochHandle, live_dataset
+    from repro_torch.query import Query
+
+    Qc, gl = main["Qc"], 256
+    idx = PDASCIndex.from_arrays(*main["idx"].to_arrays(), device="cuda")
+    idx.enable_mutations()
+    frozen = idx.plan(Query(k=10))
+    fres = frozen(Qc)
+    t0 = time.perf_counter()
+    frozen(Qc)
+    frozen_s = sync_s(t0)
+
+    # the seed per-query beam (gathers + dist.point, no kernel of the port)
+    # on the clean copy, against the batched beam plan's results
+    vplan = idx.plan(Query(k=10, execution="beam_vmap"))
+    require(vplan.pipeline == "beam_vmap", f"planned {vplan.pipeline}")
+    Qv = Qc[:N_CPU_CHECK]
+    start_phase()
+    t0 = time.perf_counter()
+    vres = vplan(Qv)
+    vmap_s = sync_s(t0)
+    vcounts = launched("online-beam-vmap", ())
+    require(not any(vcounts.values()),
+            f"beam_vmap launched a kernel: {vcounts}")
+    vd = vres.dists.cpu().numpy()
+    topk_agree(vd, vres.ids.cpu().numpy(), fres.dists[:N_CPU_CHECK].cpu().numpy(),
+               fres.ids[:N_CPU_CHECK].cpu().numpy(), vd)
+    # a candidate at the radius within rounding may count on one side only
+    n_cand_diff = int((vres.n_candidates.cpu()
+                       != fres.n_candidates[:N_CPU_CHECK].cpu()).sum())
+    log(f"[online] beam_vmap plan on the clean copy, {len(Qv)} queries: "
+        f"{vmap_s:.4f} s, no kernel launched, == the beam plan (ids modulo "
+        f"near-ties); candidate counts differ on {n_cand_diff} queries")
+
+    rng = np.random.default_rng(1)
+    leaf_ids = idx.data.leaf_ids[idx.data.levels[0].valid].cpu().numpy()
+    ups, rep, dead, c = churn_ops(rng, data, leaf_ids)
+    start_phase()
+    handle = EpochHandle(idx, delta_fill=1.0, tombstone_ratio=1.0)
+    w = apply_churn(handle, ups, rep, dead, c, rng)
+    counts = {"online-writes": launched("online-writes")}
+    require(handle.current is idx and handle.swaps == 0, "the handle swapped")
+    fill = idx.delta.size / idx.delta.capacity
+    require(idx.needs_compaction(), f"needs_compaction() is false at delta "
+            f"fill {idx.delta.size}/{idx.delta.capacity}")
+
+    start_phase()
+    plan = idx.plan(Query(k=10))
+    legs = plan.describe()["online_legs"]
+    require(legs["tombstone_mask"] and legs["delta"],
+            f"the plan lacks an online leg: {legs}")
+    res = plan(Qc)
+    t0 = time.perf_counter()
+    res = plan(Qc)
+    churn_s = sync_s(t0)
+    require(not np.isin(res.ids.cpu().numpy(), w["deleted"]).any(),
+            "a deleted id surfaced under churn")
+    check_self_found(plan, idx, w["upserted"], w["deleted"])
+    counts["online-search"] = launched("online-search")
+
+    cpu = PDASCIndex.from_arrays(*idx.to_arrays(), device="cpu")
+    t0 = time.perf_counter()
+    want = cpu.plan(Query(k=10))(Qc[:N_CPU_CHECK].cpu())
+    gd = res.dists[:N_CPU_CHECK].cpu().numpy()
+    topk_agree(gd, res.ids[:N_CPU_CHECK].cpu().numpy(), want.dists.numpy(),
+               want.ids.numpy(), gd)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+
+    # save / load of the churned index: format v3 (the online tiers in its
+    # mutable meta), loaded on the card with the same tiers and results
+    path = os.path.join(workdir, "online_index")
+    t0 = time.perf_counter()
+    idx.save(path)
+    save_s = time.perf_counter() - t0
+    with open(path + ".json") as f:
+        version = json.load(f)["version"]
+    require(version == 3, f"the churned index saved as version {version}")
+    t0 = time.perf_counter()
+    loaded = PDASCIndex.load(path, device="cuda")
+    load_s = sync_s(t0)
+    n_d = idx.delta.size
+    require(loaded.device.type == "cuda", f"loaded on {loaded.device}")
+    require(loaded.delta.size == n_d
+            and np.array_equal(loaded.delta.ids[:n_d], idx.delta.ids[:n_d])
+            and np.array_equal(loaded.delta.active[:n_d],
+                               idx.delta.active[:n_d])
+            and np.array_equal(loaded.tombstones.bits, idx.tombstones.bits)
+            and loaded._seen_id_ceiling() == idx._seen_id_ceiling(),
+            "the loaded index's online tiers differ from the saved ones")
+    lres = loaded.plan(Query(k=10))(Qc)
+    require(torch.equal(lres.ids, res.ids) and torch.equal(lres.dists, res.dists),
+            "the loaded index's search differs from the saved index's")
+    del loaded, lres
+    for ext in (".npz", ".json"):
+        os.remove(path + ext)
+    log(f"[online] save (v3, mutable meta) {save_s:.3f} s, load on the card "
+        f"{load_s:.3f} s: tiers and id ceiling equal, search bit-equal")
+
+    start_phase()
+    live_vecs, live_ids = live_dataset(idx)
+    gd_live, gt_rows = exact_knn(Qc, live_vecs, k=10, device="cuda")
+    gt = live_ids[gt_rows.cpu().numpy()]
+    gd_live = gd_live.cpu().numpy()
+    counts["online-truth"] = launched("online-truth")
+    rec_churn = recall(res.ids.cpu().numpy(), gt)
+    fresh = PDASCIndex.build(live_vecs, gl=gl, distance="euclidean",
+                             radius_quantile=0.35, group_chunk=GROUP_CHUNK,
+                             device="cuda")
+    fr = fresh.plan(Query(k=10, radius=idx.default_radius))(Qc)
+    fr_ids = fr.ids.cpu().numpy()
+    rec_fresh = recall(np.where(fr_ids >= 0, live_ids[np.clip(fr_ids, 0, None)],
+                                -1), gt)
+    del fresh
+    require(rec_fresh - rec_churn <= 0.02,
+            f"recall under churn {rec_churn:.4f} vs a fresh build "
+            f"{rec_fresh:.4f}: more than 0.02 lower")
+
+    G = idx.data.levels[0].points.shape[0] // gl
+    dead_slots = idx.tombstones.dead_slots()
+    touched = set((idx.delta.leaf_slot[:idx.delta.size][
+        idx.delta.active[:idx.delta.size]] // gl).tolist()) | set(
+        (dead_slots // gl).tolist())
+    start_phase()
+    t0 = time.perf_counter()
+    aff = idx.compact(scope="affected", group_chunk=GROUP_CHUNK)
+    aff_s = sync_s(t0)
+    t0 = time.perf_counter()
+    full = idx.compact(scope="full", group_chunk=GROUP_CHUNK)
+    full_s = sync_s(t0)
+    counts["online-compact"] = launched("online-compact")
+    old, new = idx.data.levels[0], aff.data.levels[0]
+    same = ((old.points == new.points[:old.points.shape[0]]).all(-1)
+            & (idx.data.leaf_ids == aff.data.leaf_ids[:old.points.shape[0]]))
+    same_group = same.reshape(G, gl).all(-1).cpu().numpy()
+    untouched = np.setdiff1d(np.arange(G), list(touched))
+    require(same_group[untouched].all(),
+            "affected compaction changed an untouched group's rows")
+    share = 1.0 - same_group.mean()
+    profile_breakdown("compact(affected)", lambda: idx.compact(
+        scope="affected", group_chunk=GROUP_CHUNK))
+    profile_breakdown(f"routing of {CHURN['batch']} upserts",
+                      lambda: idx._route_to_leaf(ups[0][1]))
+    exact = {}
+    start_phase()
+    for name, c_idx in (("affected", aff), ("full", full)):
+        errs = check_index_invariants(c_idx.data)
+        require(errs == [], f"{name} compaction: {errs[:5]}")
+        require(c_idx.n_points == len(live_ids) and c_idx.epoch == 1,
+                f"{name} compaction holds {c_idx.n_points} points")
+        ex = c_idx.plan(Query(k=10, execution="dense", radius=1e9))(Qc)
+        check_exact_sets(ex, gd_live, gt)
+        exact[name] = recall(c_idx.plan(Query(k=10))(Qc).ids.cpu().numpy(), gt)
+    counts["online-compacted"] = launched("online-compacted")
+    out = dict(writes_per_s=w["n_ops"] / w["write_s"], write_s=w["write_s"],
+               n_ops=w["n_ops"], delta_fill=fill,
+               qps_frozen=len(Qc) / frozen_s, qps_churn=len(Qc) / churn_s,
+               recall_churn=rec_churn, recall_fresh=rec_fresh,
+               affected_s=aff_s, full_s=full_s, affected_share=share,
+               recall_compacted=exact, vmap_s=vmap_s, save_s=save_s,
+               load_s=load_s, counts=counts)
+    log(f"[online] {w['n_ops']} writes (CHURN {json.dumps(CHURN)}) through "
+        f"EpochHandle.apply_writes: {w['write_s']:.3f} s "
+        f"({out['writes_per_s']:.1f} writes/s); delta fill "
+        f"{idx.delta.size}/{idx.delta.capacity}, {idx.tombstones.count} "
+        f"tombstoned; needs_compaction() true")
+    log(f"[online] {len(Qc)} queries, beam 32 + delta leg + tombstone mask: "
+        f"{churn_s:.4f} s ({out['qps_churn']:.1f} queries/s) against "
+        f"{frozen_s:.4f} s frozen ({out['qps_frozen']:.1f} queries/s); no "
+        f"deleted id surfaced; upserted vectors find themselves first; card "
+        f"== CPU on {N_CPU_CHECK} queries (CPU took {cpu_s:.1f} s)")
+    log(f"[online] recall@10 under churn {rec_churn:.4f}, a fresh build on "
+        f"the {len(live_ids)} live points {rec_fresh:.4f} (bar: within 0.02)")
+    log(f"[online] compact(affected) {aff_s:.3f} s ({100 * share:.2f}% of "
+        f"{G} groups changed, untouched groups bit-identical), "
+        f"compact(full) {full_s:.3f} s; both pass the invariants, their "
+        f"dense exact search == exact_knn over the live set as sets; "
+        f"recall@10 beam 32 after {json.dumps(exact)}")
+    return out
+
+
+def phase_store_churn(main: dict, data: np.ndarray) -> dict:
+    """The CHURN stream at 1/8 its size on the store phase's index (int8
+    store, memmapped exact payload, dense payload released): upserts
+    route through the scan at k = 1, the default two-stage plan runs
+    under the tombstone mask with the delta leg, and an affected
+    compaction rebuilds the store into a fresh file."""
+    from repro_torch.core.reference_impl import check_index_invariants
+    from repro_torch.online import EpochHandle
+    from repro_torch.query import Query
+
+    idx, Qc = main["idx"], main["Qc"]
+    require(idx._payload_released, "the store phase's index is not released")
+    idx.enable_mutations()
+    rng = np.random.default_rng(2)
+    leaf_ids = idx.data.leaf_ids[idx.data.levels[0].valid].cpu().numpy()
+    ups, rep, dead, c = churn_ops(rng, data, leaf_ids, scale=8)
+    start_phase()
+    w = apply_churn(EpochHandle(idx, delta_fill=1.0, tombstone_ratio=1.0),
+                    ups, rep, dead, c, rng)
+    counts = {"store-churn-writes": launched("store-churn-writes")}
+    start_phase()
+    plan = idx.plan(Query(k=10))
+    legs = plan.describe()["online_legs"]
+    require(plan.pipeline == "two_stage" and legs["tombstone_mask"]
+            and legs["delta"], f"store churn plan: {plan.pipeline} {legs}")
+    t0 = time.perf_counter()
+    res = plan(Qc)
+    q_s = sync_s(t0)
+    require(not np.isin(res.ids.cpu().numpy(), w["deleted"]).any(),
+            "a deleted id surfaced in two-stage under churn")
+    check_self_found(plan, idx, w["upserted"], w["deleted"])
+    counts["store-churn-search"] = launched("store-churn-search")
+
+    old_path = idx.store.exact.path
+    start_phase()
+    t0 = time.perf_counter()
+    new = idx.compact(scope="affected", group_chunk=GROUP_CHUNK)
+    comp_s = sync_s(t0)
+    counts["store-churn-compact"] = launched("store-churn-compact")
+    errs = check_index_invariants(new.data)
+    require(errs == [], f"store compaction: {errs[:5]}")
+    require(new._payload_released and new.store.exact.path != old_path
+            and new.store.exact.path.endswith(".epoch1"),
+            f"the new epoch's payload file is {new.store.exact.path}")
+    rb = new.store.last_rebuild
+    block = idx.store.block
+    n_old = idx.store.n
+    old_rows = idx.store.exact.read_all()
+    new_rows = new.store.exact.read_all()[:n_old]
+    same = (old_rows == new_rows).all(-1) & (
+        idx.data.leaf_ids.cpu().numpy() == new.data.leaf_ids.cpu().numpy()[:n_old])
+    nb = n_old // block
+    keep = same[:nb * block].reshape(nb, block).all(-1)
+    rows = np.nonzero(np.repeat(keep, block))[0]
+    require(np.array_equal(idx.store.codes[rows].cpu().numpy(),
+                           new.store.codes[rows].cpu().numpy()),
+            "unchanged blocks' codes differ after the rebuild")
+    res2 = new.plan(Query(k=10))(Qc)
+    require(not np.isin(res2.ids.cpu().numpy(), w["deleted"]).any(),
+            "a deleted id surfaced after the store compaction")
+    share = rb["requantized"] / rb["blocks"]
+    log(f"[store-churn] {w['n_ops']} writes on the released int8 index: "
+        f"{w['write_s']:.3f} s ({w['n_ops'] / w['write_s']:.1f} writes/s, "
+        f"routed by the scan at k=1); two-stage {len(Qc)} queries with the "
+        f"delta leg and the tombstone mask {q_s:.4f} s, no deleted id; "
+        f"compact(affected) {comp_s:.3f} s, re-quantised {rb['requantized']} "
+        f"of {rb['blocks']} blocks ({100 * share:.2f}%), {int(keep.sum())} "
+        f"unchanged blocks' codes bit-equal, payload in a fresh file "
+        f"({os.path.basename(new.store.exact.path)})")
+    for st in (idx.store, new.store):
+        if st.exact._pool is not None:
+            st.exact._pool.close()
+    return dict(write_s=w["write_s"], n_ops=w["n_ops"], query_s=q_s,
+                compact_s=comp_s, requantized_share=share, counts=counts)
+
+
 def phase_recall_record() -> float:
     import torch
     from repro_torch.baselines import exact_knn
@@ -1290,10 +1852,15 @@ def main() -> int:
     phase_cpu_check(main_run)
     phase_profile(data, main_run)
     rows = phase_timing(data, main_run)
+    phase_kmeans(data, test, main_run)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
+        phase_online(main_run, data, work)
         store = phase_store(main_run, work)
         rows.append(phase_scan_timing(main_run, store))
+        phase_store_churn(main_run, data)
+    for r in rows:  # each phase's launches of the kernel, beside the main path's
+        r["phase_launches"] = {ph: c[r["name"]] for ph, c in PHASE_LAUNCHES.items()}
     phase_recall_record()
     phase_quickstart()
     torch.cuda.synchronize()

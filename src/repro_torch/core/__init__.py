@@ -2,10 +2,12 @@
 
   distances — arbitrary-dissimilarity registry
   kmedoids  — batched PAM / FasterPAM-style clustering
+  kmeans    — batched masked Lloyd's k-means (method="kmeans", IVF-Flat)
   msa       — Multilevel Structure Algorithm (build)
   nsa       — Neighbours Search Algorithm (dense and beam search)
   index     — PDASCIndex user-facing API
   radius    — CDF radius estimation + per-level radii
+  reference_impl — the literal NSA oracle and the index invariants
 """
 
 from repro_torch.core import distances

@@ -21,8 +21,11 @@ pairwise kernel and feed one batched k-medoids run, so the working set is
 O(``group_chunk`` · gl²) however many groups the level has. The result does
 not depend on ``group_chunk``.
 
-``method="kmeans"`` is not yet ported (``core/kmeans.py`` comes with a later
-slice of the port).
+``method="kmeans"`` clusters each group with Lloyd's k-means
+(``core/kmeans.py``), snaps the centroids to group points and relabels the
+group against them; its levels' TD is 0, as in ``repro``. Its k-means++
+seeds come from the build's ``torch.Generator``, so a k-means build is not
+id-equal to ``repro``'s: it is held to the index invariants and recall.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import distances as dist_lib
+from repro_torch.core import kmeans as kmeans_lib
 from repro_torch.core import kmedoids as km
 from repro_torch.kernels import ops as kops
 
@@ -81,16 +85,52 @@ def _group_pairwise_dense(dist: dist_lib.Distance, grp_pts: Tensor,
     return dist_lib.mask_invalid(D, grp_valid, grp_valid)
 
 
+def _cluster_groups(dist: dist_lib.Distance, gpts: Tensor, gvld: Tensor, *,
+                    k: int, method: str, max_swaps: int, swap_tol: float,
+                    row_chunk: int,
+                    generator: Optional[torch.Generator] = None,
+                    init: Optional[Tensor] = None):
+    """Cluster one slab of groups ``gpts [B, g, d]`` -> ``(medoids [B, k],
+    labels [B, g], td [B])``.
+
+    ``method="kmeans"``: Lloyd's k-means per group (``init [B, k, d]``
+    initial centroids, else k-means++ from ``generator``); each centroid
+    snaps to its nearest valid point, slots past a group's valid count are
+    -1, and labels are re-derived against the snapped points by one
+    ``[B, g, k]`` ``ops.pairwise_distance`` (X not Y). Its TD is 0. Any
+    other method: the masked ``[B, g, g]`` dissimilarities and batched
+    k-medoids."""
+    B, gl = gpts.shape[0], gpts.shape[1]
+    if method == "kmeans":
+        res = kmeans_lib.kmeans_grouped(gpts, k, gvld, generator=generator,
+                                        init=init)
+        n_valid = gvld.sum(1).clamp(max=k)
+        medoids = torch.where(
+            torch.arange(k, device=gpts.device)[None, :] < n_valid[:, None],
+            res.snapped, -1).to(torch.int32)
+        safe = medoids.long().clamp(0, gl - 1)
+        mpts = torch.gather(gpts, 1, safe[:, :, None].expand(
+            B, k, gpts.shape[2])).contiguous()
+        cols = kops.pairwise_distance(gpts.contiguous(), mpts, dist,
+                                      row_chunk=row_chunk)
+        cols = torch.where(gvld[:, :, None] & (medoids[:, None, :] >= 0),
+                           cols, torch.full((), dist_lib.BIG,
+                                            device=cols.device))
+        labels = torch.where(gvld, cols.argmin(-1).to(torch.int32), -1)
+        return medoids, labels.to(torch.int32), gpts.new_zeros(B)
+    Dg = _group_pairwise_dense(dist, gpts, gvld, row_chunk)
+    res = km.kmedoids_grouped(Dg, k, gvld, method=method,
+                              max_swaps=max_swaps, rel_tol=swap_tol)
+    return res.medoids, res.labels, res.td
+
+
 def _build_level(points: Tensor, valid: Tensor, carry_a: Tensor,
                  carry_b: Tensor, *, dist: dist_lib.Distance, gl: int, k: int,
                  method: str, max_swaps: int, swap_tol: float, row_chunk: int,
-                 group_chunk: int):
+                 group_chunk: int, generator: Optional[torch.Generator] = None):
     """Cluster one level. Returns the level's final-layout arrays, the
     next level's items (initial layout), the remap initial -> final slot
     for fixing the lower level's parents, and the level's summed TD."""
-    if method == "kmeans":
-        raise NotImplementedError(
-            "method='kmeans' is not yet ported to repro_torch; use 'pam'")
     n, d = points.shape
     G = -(-n // gl)
     n_pad = G * gl
@@ -104,14 +144,13 @@ def _build_level(points: Tensor, valid: Tensor, carry_a: Tensor,
     step = group_chunk if 0 < group_chunk < G else G
     medoids, labels, td = [], [], []
     for s in range(0, G, step):
-        Dg = _group_pairwise_dense(dist, gpts[s:s + step], gvld[s:s + step],
-                                   row_chunk)
-        res = km.kmedoids_grouped(Dg, k, gvld[s:s + step], method=method,
-                                  max_swaps=max_swaps, rel_tol=swap_tol)
-        medoids.append(res.medoids)
-        labels.append(res.labels)
-        td.append(res.td)
-        del Dg
+        m, lab, t = _cluster_groups(
+            dist, gpts[s:s + step], gvld[s:s + step], k=k, method=method,
+            max_swaps=max_swaps, swap_tol=swap_tol, row_chunk=row_chunk,
+            generator=generator)
+        medoids.append(m)
+        labels.append(lab)
+        td.append(t)
     medoids = torch.cat(medoids)
     labels = torch.cat(labels).long()
     td = torch.cat(td)
@@ -193,20 +232,31 @@ def n_levels_for(n: int, gl: int, k: Optional[int] = None) -> int:
 def _cluster_levels(points: Tensor, valid: Tensor, carry_a: Tensor,
                     carry_b: Tensor, *, dist: dist_lib.Distance, gl: int,
                     k: int, method: str, max_swaps: int, swap_tol: float,
-                    row_chunk: int, group_chunk: int):
-    """Bottom-up level loop: cluster the items into groups of ``gl`` until
-    one group remains. Returns ``(raw_levels, level_td, top)``: the
-    final-layout level dicts, one TD per clustered level, and the
-    never-clustered top level."""
-    raw_levels: list[dict] = []
+                    row_chunk: int, group_chunk: int,
+                    generator: Optional[torch.Generator] = None,
+                    prev_levels: Optional[list] = None):
+    """Bottom-up level loop shared by the build and the online compaction:
+    cluster the items into groups of ``gl`` until one group remains.
+
+    ``prev_levels`` (final-layout level dicts, leaf first) seeds the loop
+    with lower levels already built: the first level clustered here is then
+    an upper level (its items are medoids carrying child_start /
+    child_count in ``carry_a`` / ``carry_b``), and its reorder fixes
+    ``prev_levels[-1]``'s parents as every later level fixes its
+    predecessor's. Returns ``(raw_levels, level_td, top)``: the
+    final-layout level dicts (``prev_levels`` included), one TD per level
+    clustered here, and the never-clustered top level."""
+    raw_levels: list[dict] = list(prev_levels) if prev_levels else []
     level_td: list[Tensor] = []
-    next_cs = next_cc = None  # child_start / child_count travelling with items
+    # child_start / child_count travelling with the items
+    next_cs, next_cc = (carry_a, carry_b) if raw_levels else (None, None)
     while True:
         G = -(-points.shape[0] // gl)
         level_arrays, next_arrays, remap, td = _build_level(
             points, valid, carry_a, carry_b, dist=dist, gl=gl, k=k,
             method=method, max_swaps=max_swaps, swap_tol=swap_tol,
             row_chunk=row_chunk, group_chunk=group_chunk,
+            generator=generator,
         )
         if raw_levels:  # fix the lower level's parents through the reorder
             p = raw_levels[-1]["parent"].long()
@@ -271,7 +321,8 @@ def build_index_arrays(
     unless ``device="cpu"``; raises when CUDA is asked for and absent).
 
     ``generator`` (a CPU ``torch.Generator``, seed 0 when omitted) draws
-    the shuffle; ``shuffle=False`` draws nothing. ``group_chunk`` bounds the
+    the shuffle and, with ``method="kmeans"``, the k-means++ seeds;
+    ``shuffle=False`` with a k-medoids method draws nothing. ``group_chunk`` bounds the
     per-level working set at O(group_chunk · gl²) (0 = the whole level);
     ``swap_tol`` is the eager swap's relative-improvement cutoff."""
     dist = dist_lib.get(distance)
@@ -287,9 +338,9 @@ def build_index_arrays(
     if not isinstance(data, Tensor):
         data = torch.from_numpy(np.asarray(data, np.float32))
     data = data.to(dev, torch.float32)
+    gen = generator if generator is not None else \
+        torch.Generator().manual_seed(0)
     if shuffle:
-        gen = generator if generator is not None else \
-            torch.Generator().manual_seed(0)
         perm = torch.randperm(n, generator=gen).to(dev)
     else:
         perm = torch.arange(n, device=dev)
@@ -298,6 +349,7 @@ def build_index_arrays(
         perm.to(torch.int32), torch.full((n,), -1, dtype=torch.int32, device=dev),
         dist=dist, gl=gl, k=k, method=method, max_swaps=max_swaps,
         swap_tol=swap_tol, row_chunk=row_chunk, group_chunk=group_chunk,
+        generator=gen,
     )
     index = finalize_index(raw_levels, top)
     return index, tuple(level_td) + (torch.zeros((), device=dev),)

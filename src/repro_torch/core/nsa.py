@@ -11,6 +11,13 @@ layer (``repro_torch.kernels.ops``):
     (``active[l] = active[l+1][parent] & valid & (d < r)``), the leaf level
     not radius-filtered unless ``leaf_radius_filter``, and a masked top-k.
 
+``search_beam_vmap``
+    The seed per-query beam (``repro``'s vmap of scalar searches), batched
+    over queries here: every level gathers each query's candidate rows and
+    scores them with the registry's ``dist.point``, never the kernel layer,
+    so it stays an oracle independent of the kernels (and the benchmark
+    baseline).
+
 ``search_beam``
     The pruned batched search: the top level is one cross
     ``ops.pairwise_distance``; every lower level is one fused
@@ -36,6 +43,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
 Tensor = torch.Tensor
+
+_VMAP_QUERY_CHUNK = 256  # queries a search_beam_vmap gather holds at once
 
 
 class SearchResult(NamedTuple):
@@ -264,4 +273,79 @@ def search_beam(index: PDASCIndexData, Q: Tensor, *, dist: dist_lib.Distance,
         leaf_radius_filter=leaf_radius_filter, kernel=kernel or kops.DEFAULT,
         slot_valid=slot_valid,
     )
+    return _squeezed(res) if squeeze else res
+
+
+# ---------------------------------------------------------------------------
+# Per-query beam (seed baseline; kept for benchmarks and as an oracle)
+# ---------------------------------------------------------------------------
+
+
+def _search_beam_gathered(index: PDASCIndexData, dist: dist_lib.Distance,
+                          Q: Tensor, k: int, radii: tuple, beams: tuple,
+                          max_children: tuple,
+                          leaf_radius_filter: bool) -> SearchResult:
+    """``repro``'s ``_search_beam_single`` for a batch of queries: per level
+    the candidates' rows are gathered ``[B, W, d]`` and scored by
+    ``dist.point``; the radius masks before each level's stable top-k."""
+    levels = index.levels
+    L = len(levels) - 1
+    B = Q.shape[0]
+    q = Q[:, None, :]
+    n_top = levels[L].points.shape[0]
+    cand_idx = torch.arange(n_top, device=Q.device)[None].expand(B, n_top)
+    cand_ok = levels[L].valid[None].expand(B, n_top)
+
+    for l in range(L, 0, -1):
+        lv = levels[l]
+        d = dist.point(q, lv.points[cand_idx])
+        ok = cand_ok & (d < radii[l])
+        d_sel, sel = kref.topk_smallest(torch.where(ok, d, _big(d)),
+                                          min(beams[l], cand_idx.shape[1]))
+        sel_idx = torch.gather(cand_idx, 1, sel.long())
+        sel_ok = d_sel < BIG / 2
+        mc = max_children[l]
+        offs = torch.arange(mc, device=Q.device)
+        grid = lv.child_start[sel_idx].long()[:, :, None] + offs
+        gvalid = (offs < lv.child_count[sel_idx][:, :, None]) \
+            & sel_ok[:, :, None]
+        n_lower = levels[l - 1].points.shape[0]
+        cand_idx = grid.reshape(B, -1).clamp(0, n_lower - 1)
+        cand_ok = gvalid.reshape(B, -1)
+
+    d = dist.point(q, levels[0].points[cand_idx])
+    ok = cand_ok & (d < radii[0]) if leaf_radius_filter else cand_ok
+    dists, pos = kref.topk_smallest(torch.where(ok, d, _big(d)),
+                                    min(k, d.shape[1]))
+    slots = torch.gather(cand_idx, 1, pos.long())
+    ids = torch.where(dists < BIG / 2, index.leaf_ids[slots], -1)
+    if dists.shape[1] < k:  # tiny index edge case
+        pad = k - dists.shape[1]
+        dists = torch.nn.functional.pad(dists, (0, pad), value=BIG)
+        ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+    return SearchResult(dists=dists, ids=ids.to(torch.int32),
+                        n_candidates=ok.sum(1, dtype=torch.int32))
+
+
+def search_beam_vmap(index: PDASCIndexData, Q: Tensor, *,
+                     dist: dist_lib.Distance, k: int = 10, r, beam,
+                     max_children: tuple, leaf_radius_filter: bool = False
+                     ) -> SearchResult:
+    """The seed per-query beam NSA over ``Q [B, d]`` (or ``[d]``), in
+    chunks of ``_VMAP_QUERY_CHUNK`` queries (each gathers ``[chunk, W,
+    d]`` rows). Superseded by :func:`search_beam`; kept as the benchmark
+    baseline and an oracle independent of the kernel layer."""
+    dist = dist_lib.get(dist)
+    n_levels = len(index.levels)
+    radii = _per_level_radii(r, n_levels)
+    beams = tuple(int(b) for b in _per_level_radii(beam, n_levels))
+    squeeze = Q.dim() == 1
+    Qb = Q[None] if squeeze else Q
+    parts = [
+        _search_beam_gathered(index, dist, Qb[i:i + _VMAP_QUERY_CHUNK], k,
+                              radii, beams, tuple(max_children),
+                              leaf_radius_filter)
+        for i in range(0, Qb.shape[0], _VMAP_QUERY_CHUNK)
+    ]
+    res = SearchResult(*(torch.cat(t) for t in zip(*parts)))
     return _squeezed(res) if squeeze else res

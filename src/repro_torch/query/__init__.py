@@ -7,6 +7,9 @@ from repro_torch.query.plan import (
     SearchPlan,
     capabilities,
     compile_plan,
+    plan_stats,
+    record_cache_hit,
+    reset_plan_stats,
 )
 from repro_torch.query.spec import EXECUTIONS, Query, validate_query_batch
 
@@ -17,5 +20,8 @@ __all__ = [
     "SearchPlan",
     "capabilities",
     "compile_plan",
+    "plan_stats",
+    "record_cache_hit",
+    "reset_plan_stats",
     "validate_query_batch",
 ]

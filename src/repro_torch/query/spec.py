@@ -23,8 +23,8 @@ from repro_torch.kernels import ops as kops
 
 # Execution preferences a Query may name (the same names as repro's).
 # "auto" resolves to "beam", or to "two_stage" once the index has released
-# its dense leaf payload; "beam_vmap" and "sharded" are not yet ported and
-# raise when the plan is compiled.
+# its dense leaf payload; "sharded" is not yet ported and raises when the
+# plan is compiled.
 EXECUTIONS = ("auto", "dense", "beam", "beam_vmap", "two_stage", "sharded")
 
 Radius = Union[None, float, tuple]

@@ -25,8 +25,10 @@ even as ``jnp.round`` does, so int8 / int4 / fp16 codes and the int8 / int4
 scales (maxima) are bit-equal to ``repro``'s; binary scales are sums, taken
 in another order, and agree to rounding.
 
-``LeafStore.rebuild`` (re-quantising the blocks a compaction changed) comes
-with the port's online tiers.
+``LeafStore.rebuild`` makes the next epoch's store after a compaction: it
+re-quantises only the blocks that overlap changed rows (unchanged blocks
+keep their codes and scales bit for bit) and backs the new exact payload
+with a fresh file, never the old epoch's.
 """
 
 from __future__ import annotations
@@ -134,6 +136,11 @@ class ExactSource:
         return isinstance(self._arr, np.memmap)
 
     @property
+    def path(self) -> Optional[str]:
+        """The backing file of an on-disk payload, else None."""
+        return os.fspath(self._arr.filename) if self.on_disk else None
+
+    @property
     def wants_prefetch(self) -> bool:
         """Whether warming the cache ahead of the rerank pays: a memmap
         fetch is real I/O worth overlapping; a host array's is a slice."""
@@ -215,6 +222,8 @@ class LeafStore:
     codes: Optional[Tensor]  # [n, dc] on the index's device; None for fp32
     scales: Optional[Tensor]  # [nb] f32; None for fp32
     exact: ExactSource  # exact fp32 payload (host array or memmap)
+    # {"blocks", "requantized"} of the rebuild that made this store
+    last_rebuild: Optional[dict] = None
 
     @classmethod
     def create(cls, points, backend: str = "int8", *, block: int = 1024,
@@ -236,6 +245,61 @@ class LeafStore:
         codes, scales = quantize(pts, backend, block)
         return cls(backend=backend, block=block, codes=codes, scales=scales,
                    exact=exact)
+
+    def rebuild(self, points, changed, *, path: Optional[str] = None,
+                cache_granules: int = 256) -> "LeafStore":
+        """The store over an updated payload (epoch-swap compaction),
+        re-quantising only the blocks that overlap changed rows.
+
+        ``points``: the new leaf payload ``[n', d]`` (rows may have been
+        appended). ``changed``: ``bool[n']``, rows whose content or
+        position differs from the old payload. A block whose rows are the
+        old block's exact range and none of which changed keeps its codes
+        and scale verbatim (quantisation is per block, so they are the
+        same bits); the changed blocks are quantised together, on the
+        codes' device, in one call. ``path`` backs the new exact payload
+        with a fresh memmap file: never the old epoch's, whose granules
+        readers of the old index may still fetch."""
+        pts = torch.as_tensor(points, dtype=torch.float32)
+        pts_np = pts.cpu().numpy()
+        n, d = pts.shape
+        changed = np.asarray(changed, bool)
+        if changed.shape != (n,):
+            raise ValueError(f"changed mask shape {changed.shape} != ({n},)")
+        exact = ExactSource(_exact_backing(pts_np, path), self.block,
+                            cache_granules=cache_granules)
+        if self.backend == "fp32":
+            return LeafStore(backend=self.backend, block=self.block,
+                             codes=None, scales=None, exact=exact)
+        block = self.block
+        nb = -(-n // block)
+        lo = np.arange(nb) * block
+        hi = np.minimum(lo + block, n)
+        hi_old = np.minimum(lo + block, self.n)
+        dirty = np.logical_or.reduceat(changed, lo) if n else np.zeros(0, bool)
+        keep = (hi_old == hi) & ~dirty
+        dev = self.codes.device
+        codes = self.codes.new_zeros((n, self.codes.shape[1]))
+        scales = torch.ones(nb, device=dev)
+        kept_rows = np.nonzero(np.repeat(keep, hi - lo))[0]
+        if kept_rows.size:
+            kr = torch.from_numpy(kept_rows).to(dev)
+            codes[kr] = self.codes[kr]
+            kb = torch.from_numpy(np.nonzero(keep)[0]).to(dev)
+            scales[kb] = self.scales[kb]
+        redo = np.nonzero(~keep)[0]
+        if redo.size:
+            # the changed blocks back to back: each starts at a multiple
+            # of ``block``, and only the last block of all may be short
+            rr = torch.from_numpy(
+                np.nonzero(np.repeat(~keep, hi - lo))[0]).to(dev)
+            c, sc = quantize(pts[rr].to(dev), self.backend, block)
+            codes[rr] = c
+            scales[torch.from_numpy(redo).to(dev)] = sc
+        return LeafStore(backend=self.backend, block=block, codes=codes,
+                         scales=scales, exact=exact,
+                         last_rebuild=dict(blocks=int(nb),
+                                           requantized=int(redo.size)))
 
     # -- geometry / accounting ------------------------------------------------
 

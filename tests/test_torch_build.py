@@ -210,10 +210,174 @@ def test_n_levels_and_max_children_match_repro():
         msa.n_levels_for(1000, 10, 6)
 
 
-def test_kmeans_is_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        msa.build_index(_grid_data(50, 3, 7), gl=10, method="kmeans",
-                        device="cpu")
+def _blobs(n, d, seed, centres=6):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(centres, d)) * 5
+    return (c[rng.integers(0, centres, n)] + rng.normal(size=(n, d))).astype(
+        np.float32)
+
+
+def _assert_argmin_agree(got, want, d2):
+    """Argmin indices equal except where the two picks are near-tied in
+    ``d2`` (rtol 1e-5, atol 1e-5 * max|d2|)."""
+    got, want = np.asarray(got), np.asarray(want)
+    atol = 1e-5 * max(1.0, float(np.abs(d2).max()))
+    for i in np.nonzero(got != want)[0]:
+        a, b = d2[i, got[i]], d2[i, want[i]]
+        assert abs(a - b) <= atol + 1e-5 * abs(b), (i, got[i], want[i])
+
+
+@pytest.mark.parametrize("n,d,k,seed", [(300, 4, 8, 0), (257, 16, 20, 1),
+                                        (64, 3, 64, 2)])
+def test_kmeans_matches_repro_with_the_same_init(n, d, k, seed):
+    """Lloyd's from repro's k-means++ seeds for the same key: centroids
+    within rtol 1e-5 and atol 1e-5 * max|X|, labels and snapped points
+    equal modulo near-ties, inertia within rtol 1e-5."""
+    from repro.core import kmeans as jk
+    from repro_torch.core import kmeans as tk
+
+    X = _blobs(n, d, seed)
+    valid = np.random.default_rng(seed).random(n) > 0.1
+    key = jax.random.PRNGKey(seed)
+    init = np.asarray(jk._plus_plus_init(jnp.asarray(X), k,
+                                         jnp.asarray(valid), key))
+    want = jk.kmeans(jnp.asarray(X), k, jnp.asarray(valid), key=key)
+    got = tk.kmeans(_t(X), k, _t(valid), init=torch.tensor(init))
+    np.testing.assert_allclose(got.centroids.numpy(),
+                               np.asarray(want.centroids), rtol=1e-5,
+                               atol=1e-5 * np.abs(X).max())
+    C = np.asarray(want.centroids, np.float64)
+    d2 = ((X[:, None, :].astype(np.float64) - C[None]) ** 2).sum(-1)
+    wl, gl_ = np.asarray(want.labels), got.labels.numpy()
+    assert np.array_equal(wl < 0, gl_ < 0) and (wl[~valid] == -1).all()
+    _assert_argmin_agree(gl_[valid], wl[valid], d2[valid])
+    _assert_argmin_agree(got.snapped.numpy(), np.asarray(want.snapped),
+                         np.where(valid[:, None], d2, 1e30).T)
+    np.testing.assert_allclose(float(got.inertia), float(want.inertia),
+                               rtol=1e-5)
+
+
+def test_kmeans_grouped_and_plus_plus_init():
+    """The batched k-means equals one call a group; k-means++ draws only
+    valid points, is repeatable for a seed, and falls back to uniform
+    draws where every distance is zero."""
+    from repro_torch.core import kmeans as tk
+
+    X = _t(np.stack([_blobs(50, 3, s) for s in range(3)]))
+    valid = _t(np.random.default_rng(4).random((3, 50)) > 0.3)
+    gen = lambda: torch.Generator().manual_seed(7)  # noqa: E731
+    init = tk.plus_plus_init(X, 6, valid, gen())
+    assert torch.equal(init, tk.plus_plus_init(X, 6, valid, gen()))
+    for b in range(3):
+        rows = {tuple(r) for r in X[b][valid[b]].tolist()}
+        assert all(tuple(c) in rows for c in init[b].tolist())
+    batched = tk.kmeans_grouped(X, 6, valid, init=init)
+    for b in range(3):
+        one = tk.kmeans(X[b], 6, valid[b], init=init[b])
+        for a, c in zip(one, batched):
+            assert torch.equal(a, c[b])
+    same = torch.ones((1, 10, 2))
+    seeds = tk.plus_plus_init(same, 4, torch.ones((1, 10), dtype=torch.bool))
+    assert torch.equal(seeds, torch.ones((1, 4, 2)))
+
+
+def test_cluster_groups_kmeans_branch_matches_repro():
+    """One slab of groups through msa._cluster_groups(method="kmeans"),
+    the port fed repro's k-means++ seeds for each group's key: the same
+    snapped medoids modulo near-ties (at k = g / 2 most clusters hold two
+    points, whose centroid lies midway: an exact tie that rounding
+    decides), -1 past a group's valid count, labels that are the argmin
+    over the snapped points (equal to repro's where the medoids are),
+    and a TD of zeros."""
+    from repro.core import distances as jdl
+    from repro.core import kmeans as jk
+    from repro_torch.core import distances as tdl
+
+    G, g, d, k = 4, 30, 3, 15
+    pts = np.stack([_blobs(g, d, 10 + i) for i in range(G)])
+    gvld = np.ones((G, g), bool)
+    gvld[1, 20:] = False
+    gvld[2, 9:] = False  # fewer valid points than k
+    keys = jax.random.split(jax.random.PRNGKey(3), G)
+    init = np.stack([np.asarray(jk._plus_plus_init(
+        jnp.asarray(pts[i]), k, jnp.asarray(gvld[i]), keys[i]))
+        for i in range(G)])
+    jm, jl, jtd = jmsa._cluster_groups(
+        jdl.get("euclidean"), jnp.asarray(pts), jnp.asarray(gvld), keys,
+        k=k, method="kmeans", max_swaps=64, swap_tol=1e-3, row_chunk=512,
+        bg=128, force_pallas=False)
+    tm, tl, ttd = msa._cluster_groups(
+        tdl.get("euclidean"), _t(pts), _t(gvld), k=k, method="kmeans",
+        max_swaps=64, swap_tol=1e-3, row_chunk=512, init=torch.tensor(init))
+    assert (tm[2, 9:] == -1).all() and float(ttd.abs().sum()) == 0.0
+    np.testing.assert_array_equal(tm.numpy() < 0, np.asarray(jm) < 0)
+    for i in range(G):
+        v = gvld[i]
+        C = np.asarray(jk.kmeans(jnp.asarray(pts[i]), k, jnp.asarray(v),
+                                 key=keys[i]).centroids, np.float64)
+        to_c = ((pts[i][:, None].astype(np.float64) - C[None]) ** 2).sum(-1)
+        real = tm[i].numpy() >= 0
+        _assert_argmin_agree(tm[i].numpy()[real], np.asarray(jm[i])[real],
+                             np.where(v[:, None], to_c, 1e30).T[real])
+        med = pts[i][np.clip(tm[i].numpy(), 0, g - 1)]
+        dm = np.sqrt(((pts[i][:, None] - med[None]) ** 2).sum(-1))
+        dm = np.where(real[None], dm, 1e30)
+        assert (tl[i].numpy()[~v] == -1).all()
+        _assert_argmin_agree(tl[i].numpy()[v], dm[v].argmin(-1), dm[v])
+        if np.array_equal(tm[i].numpy(), np.asarray(jm[i])):
+            _assert_argmin_agree(tl[i].numpy()[v], np.asarray(jl[i])[v],
+                                 dm[v])
+
+
+def test_kmeans_build_passes_the_invariants():
+    """A method="kmeans" build: the index invariants hold, every level's
+    TD is 0 (as repro's), the levels keep their sizes, and the same
+    generator seed gives the same index."""
+    from repro_torch.core import reference_impl
+
+    data = _blobs(700, 5, 6)
+    a, stats = msa.build_index(data, gl=24, method="kmeans", device="cpu",
+                               generator=torch.Generator().manual_seed(1))
+    b, _ = msa.build_index(data, gl=24, method="kmeans", device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+    assert reference_impl.check_index_invariants(a) == []
+    assert check_index_invariants(_as_repro(a)) == []
+    assert all(t == 0.0 for t in stats.level_td)
+    _, jstats = jmsa.build_index(data, gl=24, method="kmeans")
+    assert stats.level_sizes == jstats.level_sizes
+    for x, y in zip(a.levels, b.levels):
+        assert all(torch.equal(getattr(x, f), getattr(y, f)) for f in x._fields)
+
+
+def test_ivf_flat_matches_repro_with_the_same_init():
+    """IVF-Flat with repro's k-means++ seeds: the same cells, and the same
+    search results (dists within rtol 1e-5, ids modulo near-ties) under
+    both supported distances."""
+    from repro.baselines.ivf_flat import IVFFlatIndex as JIVF
+    from repro.core import kmeans as jk
+    from repro_torch.baselines import SUPPORTED, IVFFlatIndex
+
+    assert SUPPORTED == ("euclidean", "manhattan")
+    X = _blobs(800, 6, 12, centres=10)
+    Q = _blobs(8, 6, 13, centres=10)
+    key = jax.random.PRNGKey(0)
+    init = np.asarray(jk._plus_plus_init(jnp.asarray(X), 16,
+                                         jnp.ones(800, bool), key))
+    j = JIVF.build(X, n_cells=16)  # its default key, PRNGKey(0)
+    t = IVFFlatIndex.build(X, n_cells=16, init=init, device="cpu")
+    np.testing.assert_array_equal(t.lists, j.lists)
+    np.testing.assert_array_equal(t.offsets, j.offsets)
+    for name in SUPPORTED:
+        j.distance = t.distance = name
+        for n_probe, k in ((3, 10), (1, 2000)):
+            jd, ji = j.search(Q, k=k, n_probe=n_probe)
+            td, ti = t.search(Q, k=k, n_probe=n_probe)
+            real = np.isfinite(jd)
+            assert np.array_equal(real, np.isfinite(td)) and (ti[~real] == -1).all()
+            np.testing.assert_allclose(td[real], jd[real], rtol=1e-5,
+                                       atol=1e-5 * jd[real].max())
+            for q, p in zip(*np.nonzero((ti != ji) & real)):
+                assert np.isclose(td[q, p], jd[q, p], rtol=1e-5)
 
 
 def test_radius_estimate_and_per_level_radii():

@@ -410,20 +410,104 @@ def test_knn_geometry_picks_the_query_tile():
 
 
 def test_swap_shared_memory_check():
+    """Every g fits a sweep block: the caches stage 1,024 rows at a time,
+    and past ~760 slots a block holds 256 of them. k < 1 raises, and so
+    does k past the order kernel's 14,527 (4 x (k + 1) int32 slot counts
+    in 227 KB); the slot-block grid limit lies beyond that."""
     from repro_torch.kernels import kmedoids as kmk
+
+    assert kmk.SWAP_MAX_K == 14_527
+    assert kmk.order_smem_bytes(kmk.SWAP_MAX_K) <= 227 * 1024
+    assert kmk.order_smem_bytes(kmk.SWAP_MAX_K + 1) > 227 * 1024
+    kmk.check_swap_shape(2 * kmk.SWAP_MAX_K, kmk.SWAP_MAX_K)
+    with pytest.raises(ValueError, match="order kernel"):
+        kmk.check_swap_shape(2 * kmk.SWAP_MAX_K + 2, kmk.SWAP_MAX_K + 1)
 
     kmk.check_swap_shape(256, 128)  # the main path's sweep
     assert kmk.swap_smem_bytes(256, 128) <= 227 * 1024
-    for g, k in [(256, 1024), (20_000, 8), (256, 0)]:
+    assert kmk.swap_geometry(256, 128).slot_blocks == 1
+    for g, k in [(256, 1024), (20_000, 8), (1457, 728), (2048, 1024),
+                 (4096, 2048)]:
+        kmk.check_swap_shape(g, k)
+        assert kmk.swap_geometry(g, k).smem <= 227 * 1024
+    for g, k in [(256, 0), (300, -1)]:
         with pytest.raises(ValueError):
             kmk.check_swap_shape(g, k)
+
+
+@pytest.mark.parametrize("g", [24, 300, 1457, 2048, 4096])
+def test_swap_geometry_covers_every_slot_and_column_once(g):
+    """At k = 1, g / 2 and g: the slot blocks tile [0, k) and the column
+    tiles [0, g), each exactly once, and every block fits in 227 KB."""
+    from repro_torch.kernels import kmedoids as kmk
+
+    for k in (1, g // 2, g):
+        geo = kmk.swap_geometry(g, k)
+        assert geo.smem <= 227 * 1024
+        slots = np.zeros(k, int)
+        for z in range(geo.slot_blocks):
+            slots[z * geo.kb:min(z * geo.kb + geo.kb, k)] += 1
+        cols = np.zeros(g, int)
+        for x in range(geo.col_tiles):
+            cols[x * kmk._BN:min(x * kmk._BN + kmk._BN, g)] += 1
+        assert (slots == 1).all() and (cols == 1).all(), (g, k, geo)
+        assert (geo.slot_blocks == 1) == (kmk.swap_smem_bytes(g, k)
+                                          <= 227 * 1024)
+
+
+def _swap_walk(D, d1, d2, n1, valid, k, geo):
+    """swap.cu's sweep in numpy, block by block: the rows ordered by slot
+    (valid rows with an out-of-range slot last), each slot block's T rows
+    from its own rows, S as the slot blocks' partial sums added in order."""
+    g = D.shape[0]
+    sl = np.where((n1 >= 0) & (n1 < k), n1, k)
+    order = np.argsort(np.where(valid, sl, k + 1), kind="stable")
+    order = order[valid[order]]
+    starts = np.searchsorted(sl[order], np.arange(k + 1))
+    out = np.zeros((k, g), np.float32)
+    S = np.zeros(g, np.float32)
+    for z in range(geo.slot_blocks):
+        i0, i1 = z * geo.kb, min(z * geo.kb + geo.kb, k)
+        hi = len(order) if z == geo.slot_blocks - 1 else starts[i1]
+        rows = order[starts[i0]:hi]
+        x = D[rows]
+        S = S + np.minimum(x - d1[rows, None], 0).sum(0, dtype=np.float32)
+        t = np.where(x >= d1[rows, None],
+                     np.minimum(d2[rows, None], x) - d1[rows, None], 0)
+        for i in range(i0, i1):
+            out[i] = t[sl[rows] == i].sum(0)
+    return out + S
+
+
+@pytest.mark.parametrize("g,k", [(300, 150), (1500, 1200), (2048, 1024)])
+def test_swap_slot_split_walk_matches_the_plain_version(g, k):
+    """The split layout's arithmetic (rows of a slot block contiguous in
+    walk order, the last block also walking the slot-less valid rows, S
+    from partial sums) against ``ref.swap_deltas_ref``, within the tests'
+    rule (rtol 1e-5, atol 1e-5 * max|ref|)."""
+    from repro_torch.kernels import kmedoids as kmk
+
+    rng = np.random.default_rng(g)
+    D = np.abs(rng.normal(size=(g, g))).astype(np.float32)
+    d1 = np.abs(rng.normal(size=g)).astype(np.float32)
+    d2 = d1 + np.abs(rng.normal(size=g)).astype(np.float32)
+    n1 = rng.integers(0, k, size=g).astype(np.int32)
+    valid = rng.random(g) > 0.2
+    geo = kmk.swap_geometry(g, k)
+    assert (geo.slot_blocks > 1) == (k > 760)
+    got = _swap_walk(D, d1, d2, n1, valid, k, geo)
+    want = ref.swap_deltas_ref(*(torch.from_numpy(x) for x in
+                                 (D, d1, d2, n1, valid)), k).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("source,names", [
     ("knn.cu", {"TN": "_KNN_TN", "BK": "_KNN_BK", "STAGES": "_KNN_STAGES",
                 "CAP": "_KNN_CAP", "STREAM_BK": "_KNN_STREAM_BK",
                 "STREAM_STAGES": "_KNN_STREAM_STAGES"}),
-    ("swap.cu", {"BN": "_BN", "STAGES": "_STAGES", "R": "_ROWS"}),
+    ("swap.cu", {"BN": "_BN", "STAGES": "_STAGES", "R": "_ROWS",
+                 "CHUNK": "_CHUNK", "KB": "_KB"}),
     ("pairwise.cu", {"BM": "_BM", "BN": "_BN", "BK": "_BK",
                      "STAGES": "_STAGES"}),
     ("rank.cu", {"THREADS": "_RANK_THREADS"}),

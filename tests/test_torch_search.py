@@ -183,14 +183,17 @@ def test_save_load_roundtrip_and_unported_formats(tmp_path):
     for a, b in zip(idx.data.levels, back.data.levels):
         assert all(torch.equal(getattr(a, f), getattr(b, f)) for f in a._fields)
     meta = json.load(open(path + ".json"))
-    for version in (3, 5):  # online tiers, remote payload manifest
-        json.dump(dict(meta, version=version), open(path + ".json", "w"))
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            PDASCIndex.load(path, device="cpu")
-    json.dump(dict(meta, version=2, mutable={"delta_size": 0}),
-              open(path + ".json", "w"))
+    assert meta["version"] == 2 and meta["mutable"] is None
+    json.dump(dict(meta, version=5), open(path + ".json", "w"))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        PDASCIndex.load(path, device="cpu")
+        PDASCIndex.load(path, device="cpu")  # a remote payload manifest
+    # the online tiers (v3) now load: an empty delta and no tombstones
+    json.dump(dict(meta, version=3, mutable=dict(
+        delta_capacity=16, delta_size=0, next_id=500)),
+        open(path + ".json", "w"))
+    online = PDASCIndex.load(path, device="cpu")
+    assert online.delta.capacity == 16 and online.tombstones.count == 0
+    assert online._seen_id_ceiling() == 500
     json.dump(dict(meta, version=99), open(path + ".json", "w"))
     with pytest.raises(ValueError, match="unsupported"):
         PDASCIndex.load(path, device="cpu")
@@ -202,9 +205,9 @@ def test_query_surface():
     assert plan.pipeline == "beam" and idx.plan(Query(k=3)) is plan
     assert "rank_gathered" in plan.explain()
     assert idx.plan(k=3, execution="dense").pipeline == "dense"
-    for execution in ("beam_vmap", "sharded"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            idx.plan(Query(execution=execution))
+    assert idx.plan(k=3, execution="beam_vmap").pipeline == "beam_vmap"
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        idx.plan(Query(execution="sharded"))
     with pytest.raises(ValueError, match="needs a leaf store"):
         idx.plan(Query(execution="two_stage"))
     with pytest.raises(ValueError, match="non-finite"):
@@ -213,6 +216,86 @@ def test_query_surface():
         plan(np.zeros((2, 5), np.float32))
     res = idx.search(np.zeros(8, np.float32), k=3)
     assert res.ids.shape == (3,) and "level 0: 120 valid" in idx.describe()
+
+
+@pytest.mark.parametrize("distance", ["euclidean", "cosine"])
+def test_beam_vmap_equals_repro_and_the_batched_beam(distance, tmp_path):
+    """The seed per-query beam on a repro-built index: equal to repro's
+    search_beam_vmap (dists within the rule, ids modulo near-ties, the
+    same candidate counts), and to the port's batched beam, through the
+    plan and directly, with and without the leaf radius filter."""
+    from repro.core import nsa as jnsa
+
+    data = _data(distance, 500, seed=7)
+    jidx = JIndex.build(data, gl=32, distance=distance, radius_quantile=0.3)
+    tidx = _save_load(jidx, tmp_path,
+                      lambda p: PDASCIndex.load(p, device="cpu"))
+    Q = _data(distance, 530, seed=7)[500:]
+    r = _gap_radius(_levels(jidx), distance, Q)
+    for beam, lrf in ((4, False), (16, True)):
+        want = jnsa.search_beam_vmap(
+            jidx.data, jnp.asarray(Q), dist=jidx.distance, k=6, r=r,
+            beam=beam, max_children=jidx.max_children, leaf_radius_filter=lrf)
+        got = nsa.search_beam_vmap(
+            tidx.data, torch.from_numpy(Q), dist=tidx.distance, k=6, r=r,
+            beam=beam, max_children=tidx.max_children, leaf_radius_filter=lrf)
+        assert_results_agree(got, want, squared=distance == "euclidean")
+        planned = tidx.plan(Query(k=6, radius=r, beam=beam,
+                                  leaf_radius_filter=lrf,
+                                  execution="beam_vmap"))(Q)
+        assert all(torch.equal(a, b) for a, b in zip(planned, got))
+        batched = tidx.plan(Query(k=6, radius=r, beam=beam,
+                                  leaf_radius_filter=lrf))(Q)
+        assert_results_agree(batched, got, squared=distance == "euclidean")
+    one = nsa.search_beam_vmap(tidx.data, torch.from_numpy(Q[0]),
+                               dist=tidx.distance, k=6, r=r, beam=4,
+                               max_children=tidx.max_children)
+    assert one.ids.shape == (6,)
+
+
+def test_plan_stats_count_as_repro():
+    """plan_stats() after the same sequence of plan calls: compiles, cache
+    hits, re-plans of a stale plan, and executions per pipeline."""
+    from repro.query import plan_stats as j_plan_stats
+    from repro.query import reset_plan_stats as j_reset_plan_stats
+    from repro_torch.query import plan_stats, reset_plan_stats
+
+    data = _data("euclidean", 300, seed=8)
+    Q = data[:4] + 0.01
+    for make, stats, reset, query in (
+            (lambda: JIndex.build(data, gl=24), j_plan_stats,
+             j_reset_plan_stats, JQuery),
+            (lambda: PDASCIndex.build(data, gl=24, device="cpu"), plan_stats,
+             reset_plan_stats, Query)):
+        idx = make()
+        reset()
+        beam = idx.plan(query(k=3))
+        beam(Q)
+        idx.plan(query(k=3))(Q)  # a cache hit
+        idx.plan(query(k=3, execution="dense"))(Q)
+        idx.plan(query(k=3, execution="beam_vmap"))(Q)
+        idx.upsert(Q[:1] + 1.0)
+        beam(Q)  # stale: re-plans
+        idx.delete([0])
+        idx.plan(query(k=3))(Q)
+        if query is JQuery:
+            want = stats()
+        else:
+            got = stats()
+    assert got == want
+    assert got["beam"] == dict(compiles=3, cache_hits=1, replans=1,
+                               executions=4)
+
+
+def test_per_level_radii_equal_repro(tmp_path):
+    data = _data("manhattan", 400, seed=9)
+    jidx = JIndex.build(data, gl=24, distance="manhattan")
+    tidx = _save_load(jidx, tmp_path,
+                      lambda p: PDASCIndex.load(p, device="cpu"))
+    for q in (0.5, 0.9):
+        np.testing.assert_allclose(tidx.per_level_radii(quantile=q),
+                                   jidx.per_level_radii(quantile=q),
+                                   rtol=1e-5)
 
 
 @pytest.mark.parametrize("name", synthetic.dataset_names())

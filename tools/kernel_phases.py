@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a CUDA kernel's time goes, on one GPU.
 
-    python3 tools/kernel_phases.py [--kernel knn|rank|pairwise|scan]
+    python3 tools/kernel_phases.py [--kernel knn|rank|pairwise|scan|swap]
                                    [--route wgmma|stream] [--source FILE]
 
 Builds copies of one kernel source under ``build/tools/`` and times each
@@ -35,7 +35,12 @@ seed), then prints one JSON object with the card's name and power limit:
   kernel and a copy that counts cycles a warp in the gather (code rows,
   unpacking, distances), the block barriers and the top-k merges.
 
-``--source FILE`` (rank, scan) also measures another version of the
+* ``swap`` (``csrc/swap.cu``; one sweep of the build's slab, 1,024 groups
+  of 256 points, k = 128, the caches from a seed with ~80% of the rows
+  valid): the kernel alone, through its C entry on preallocated buffers,
+  in three rounds of 50 calls that alternate the designs' order.
+
+``--source FILE`` (rank, scan, swap) also measures another version of the
 kernel's source (e.g. the parent commit's file, any of its designs) in
 the same run, so that the two designs are compared on one card; the
 results of the two must be equal. Exits 2 without a GPU.
@@ -226,6 +231,56 @@ PAIRWISE_NOSTORE = ("  if (ost[threadIdx.x] == 1234.5f) out[0] = 1.0f;  // keep 
                     "  return;\n" + PAIRWISE_STORE)
 
 
+# ---- swap --------------------------------------------------------------------
+
+
+def swap_designs(torch, out, sources, rng, time_ms, G=1024, g=256, k=128,
+                 rounds=3):
+    """Time each design of swap.cu on one sweep of the build's slab through
+    its C entry (the unsplit design's takes 9 pointers; the slot-split one
+    adds the slot offsets and the partial S), in ``rounds`` rounds that
+    alternate the designs' order (A B B A ...), and say whether they agree
+    bit for bit."""
+    from repro_torch.kernels import kmedoids as kmk
+
+    t = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
+    D = t(np.abs(rng.normal(size=(G, g, g))).astype(np.float32))
+    d1 = t(np.abs(rng.normal(size=(G, g))).astype(np.float32))
+    d2 = d1 + t(np.abs(rng.normal(size=(G, g))).astype(np.float32))
+    n1 = t(rng.integers(0, k, size=(G, g)).astype(np.int32))
+    valid = t(rng.random((G, g)) > 0.2)
+    runs, outs = {}, {}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for tag, text in sources.items():
+        split = "void* off" in text
+        lib = build("swap", {tag: text},
+                    {"swap_launch": [P] * (11 if split else 9) + [I] * 3 + [P]})[tag]
+        nz = kmk.swap_geometry(g, k).slot_blocks if split else 1
+        o = torch.empty((G, k, g), device="cuda")
+        scratch = [torch.empty((G, g), device="cuda", dtype=torch.int32),
+                   torch.empty((G, g, 4), device="cuda")]
+        if split:
+            scratch.append(torch.empty((G, k + 1), device="cuda", dtype=torch.int32))
+        scratch.append(torch.empty(G, device="cuda", dtype=torch.int32))
+        if split:
+            scratch.append(torch.empty((G, nz, g) if nz > 1 else (1,), device="cuda"))
+        args = ([x.data_ptr() for x in (D, d1, d2, n1, valid, o)]
+                + [x.data_ptr() for x in scratch]
+                + [G, g, k, torch.cuda.current_stream().cuda_stream])
+        runs[tag] = lambda lib=lib, a=args: _check(lib.swap_launch(*a), "swap")  # noqa: E731
+        runs[tag]()
+        outs[tag] = o.clone()
+    ms = {tag: [] for tag in runs}
+    order = list(runs)
+    for r in range(rounds):
+        for tag in (order if r % 2 == 0 else order[::-1]):
+            ms[tag].append(time_ms(runs[tag], iters=50))
+    first = next(iter(outs.values()))
+    out.update(shape=[G, g, k], ms=ms,
+               median_ms={tag: float(np.median(v)) for tag, v in ms.items()},
+               designs_bit_equal=all(torch.equal(v, first) for v in outs.values()))
+
+
 # ---- build, count, main ------------------------------------------------------
 
 
@@ -319,11 +374,13 @@ def _check(err: int, what: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("knn", "rank", "pairwise", "scan"),
+    ap.add_argument("--kernel", choices=("knn", "rank", "pairwise", "scan",
+                                         "swap"),
                     default="knn")
     ap.add_argument("--route", choices=("wgmma", "stream"), default="wgmma",
                     help="knn's route (stream: at KNN_STREAM_SHAPE)")
-    ap.add_argument("--source", help="another version of rank.cu or scan.cu, "
+    ap.add_argument("--source", help="another version of rank.cu, scan.cu or "
+                    "swap.cu, "
                     "measured beside it")
     ap.add_argument("--table", choices=("real", "synthetic"), default="real",
                     help="rank's and scan's candidate table (default: the "
@@ -358,8 +415,8 @@ def main() -> int:
     src = (_build.CSRC / f"{args.kernel}.cu").read_text()
     sources = {"current": src}
     if args.source:
-        if args.kernel not in ("rank", "scan"):
-            raise SystemExit("--source is for --kernel rank or scan")
+        if args.kernel not in ("rank", "scan", "swap"):
+            raise SystemExit("--source is for --kernel rank, scan or swap")
         with open(args.source) as f:
             sources["source"] = f.read()
 
@@ -445,6 +502,8 @@ def main() -> int:
                 lambda text: {"scan_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int]
                               * (10 + 3 * shaped(text)) + [ctypes.c_void_p]},
                 cases, time_ms)
+    elif args.kernel == "swap":
+        swap_designs(torch, out, sources, rng, time_ms)
     else:
         variants = {}
         for tag, text in sources.items():
