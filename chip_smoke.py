@@ -92,10 +92,61 @@ result line):
    unchanged blocks' codes (the share re-quantised printed). Launch
    counts are zeroed before each of these phases and read after it:
    every kernel of the phase's path must have launched.
+   Serving and observability, between the online and store phases on the
+   clean 1M index and its 1,000 queries, ``Query(k=10, beam=32)``:
+   (a) ``serve-engine``: ``BatchingEngine`` (batch 32, max_wait 4 ms,
+   ``launch/serve.py``'s defaults) over ``QueryHandler``; a closed loop of
+   the 1,000 queries from 8 threads (q/s, p50, p99, mean occupancy), every
+   answer bit-equal to its row of ``idx.plan(query)(test)``; 2,000
+   open-loop Poisson arrivals at 0.6x the closed-loop rate (p50, p99,
+   p999); the device busy share of ~1 s of that open loop. (b)
+   ``serve-churn``: the engine with ``EpochHandle.apply_writes`` over a
+   ``from_arrays`` copy (delta capacity 4,096, compaction at half): 4,096
+   searches and 2,560 writes (upserts of resident rows + N(0, 0.01)
+   noise, every fifth a delete of an id upserted earlier), more upserts
+   if no swap tripped; an upserted vector searched right after its
+   upsert comes back first; no deleted id is served after its delete; the
+   tail quarter equals the final epoch's plan bit for bit; p99 with the
+   swap stall and the swap's seconds. (c) ``serve-replicated``:
+   ``bench_serve.py``'s tier (4 replicas, batch 8, max_wait 1 ms, its
+   ``RouterConfig``) adding under 5% of the index's resident bytes; a
+   fault-free run (600 open-loop requests at 0.6x the closed-loop
+   saturation, tracing 1 in 4, shadow recall 1 in 16): 0 errors, answers
+   on the full plan equal to the single plan's rows, the shadow estimate
+   within 0.05 of the offline recall; each sampled query through the knn
+   wrapper at b = 1 against the estimator's device reference (the live n,
+   the worker's own launch shape) held to ``knn_ref``, and the estimate
+   equal to the recall of the sampled requests against those answers and
+   against the ground truth's rows (up to near-ties at the 10th place);
+   the plan calls/s of 1, 2 and 4 threads; the p99 exemplar's span tree whole
+   (children inside parents, self-times summing to the wall time); 64
+   upserts and 16 deletes through the replica set (4 live sets equal),
+   ``kill(3)`` + ``restart(3)`` (converges); then a fresh tier with
+   ``wedge:r1@6+5:0.5``: 0 errors, ``eject`` and ``readmit``. (d)
+   ``serve-replicated-swap``: the fault-free traffic goes on while
+   batches of upserts carry all 4 replicas past half their delta: the
+   window's errors, deadline misses, router events and p99 are printed;
+   the replicas' live sets must converge, and answers after the swap
+   equal their replica's new epoch. After the store phase, (e)
+   ``serve-two-stage``: the engine over the released int8 index's
+   two-stage plan with ``launch/serve.py``'s prefetch hook, 1,000
+   requests, 1 in 4 traced (each trace holds descend, scan, rerank and
+   granule_fetch), answers bit-equal to the plan's rows; the registry's
+   snapshot (>= 25 series over >= 5 subsystems, engine, router, plan,
+   store and online non-zero), its Prometheus text parsed, and ``python
+   -m repro_torch.obs.report`` over it and the traces; throughput with
+   the registry on and off, printed. Each of these windows zeroes the
+   launch counts just before its work and requires its kernels after.
 5. Recall against the record: dense_embed n = 7,800, gl = 256, euclidean,
    beam 32 must reach recall@10 >= 0.85.
 6. The quickstart on the card: euclidean, manhattan, chebyshev and cosine
    with beam; haversine and jaccard with dense.
+7. (f) The serve CLI as subprocesses: ``python -m
+   repro_torch.launch.serve`` at n = 200,000 on the single-engine path
+   (``--churn 64``) and the replicated one (``--replicas 3 --faults
+   wedge:r1@20+8:0.4 --churn 12``), both with tracing, shadow recall and
+   a metrics dump: exit 0, a recall line, ``errors=0`` on the replicated
+   path.
 
 Tolerance rule (as in tests/test_torch_*.py): fp32 results agree within
 rtol = 1e-5 and atol = 1e-5 * max(1, max|ref|); l2 distances are compared
@@ -118,6 +169,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -194,6 +246,12 @@ WINDOW_KERNELS = {
     "store-churn-writes": ("rank", "scan"),  # routing through scan, k = 1
     "store-churn-search": ("pairwise", "rank", "scan"),  # two-stage + legs
     "store-churn-compact": ("pairwise", "swap_deltas"),  # + LeafStore.rebuild
+    "serve-engine": ("pairwise", "rank"),  # the engine's beam batches
+    "serve-churn": ("pairwise", "rank", "swap_deltas"),  # + its swap
+    "serve-replicated": ("rank", "knn"),  # 4 replicas + the shadow worker
+    "serve-replicated-swap": ("swap_deltas", "rank"),  # 4 compactions
+    "serve-replicated-wedge": ("rank",),  # the wedged tier
+    "serve-two-stage": ("scan", "rank"),  # the engine's two-stage batches
 }
 SYMBOLS = {  # each kernel's __global__ functions
     "pairwise": ("pairwise_kernel",), "rank": ("rank_kernel",),
@@ -214,6 +272,20 @@ N_BIG_GL = 200_000  # rows of the gl = 2048 build
 IVF_PROBE = 8  # bench_recall.py: n_cells = n // 256, n_probe = 8
 CHURN = dict(upserts=2048, batch=128, replace=256, delete=1024,
              delete_upserted=256)  # the online phase's write stream
+SERVE_BATCH, SERVE_WAIT_MS = 32, 4.0  # launch/serve.py's defaults
+SERVE_THREADS = 8  # closed-loop submitting threads
+SERVE_OPEN = 2000  # open-loop arrivals of the engine phase
+OPEN_LOAD = 0.6  # open-loop rate over closed-loop saturation (bench_serve)
+SERVE_CHURN = dict(searches=4096, writes=2560, delete_every=5, noise=0.01,
+                   delta_capacity=4096, delta_fill=0.5)  # configs/pdasc.py
+TIER = dict(replicas=4, batch=8, wait_ms=1.0, open=600, upserts=64,
+            deletes=16)  # bench_serve.py's tier, its open-loop count
+WEDGE = "wedge:r1@6+5:0.5"  # BENCH_serve.json's wedged row
+TRACE_EVERY, SHADOW_EVERY = 4, 16
+SWAP_UPSERT_BATCH = 128  # rows per upsert through the replica set
+# the serving phases' compactions take the build's slab size, as the online
+# phase's do (the default slab, 8 groups, makes over a hundred at 1M)
+COMPACT_KW = dict(group_chunk=GROUP_CHUNK)
 
 
 class CheckFailed(RuntimeError):
@@ -876,12 +948,14 @@ def profile_breakdown(label: str, fn) -> dict:
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: recording every host op as well took the
+    # profiled 1M build ~80 s, and a host op's device time repeats its
+    # kernels' (same busy time either way on an H100)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # device-side records only (kernels, copies): a CPU op's own device
-    # time repeats its kernels'; CUPTI's buffer requests are the tracer's
+    # device-side records only (kernels, copies); CUPTI's buffer requests
+    # are the tracer's
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU and _device_us(e) > 0
               and not e.key.startswith("Activity Buffer")]
@@ -1251,8 +1325,6 @@ def phase_store(main: dict, workdir: str) -> dict:
 
     prof = profile_breakdown(f"two-stage {len(Qc)} queries, int8, R="
                              f"{RERANK_WIDTH}", lambda: plan(Qc))
-    if idx.store.exact._pool is not None:
-        idx.store.exact._pool.close()
     return dict(counts=counts, recall=rec, first_s=first_s,
                 second_s=second_s, mem=mem, cache=dict(cache), others=others,
                 profile=prof)
@@ -1767,6 +1839,919 @@ def phase_store_churn(main: dict, data: np.ndarray) -> dict:
                 compact_s=comp_s, requantized_share=share, counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# serving phases: the batching engine, the replicated router, observability
+# ---------------------------------------------------------------------------
+
+
+def pcts(lat_s) -> dict:
+    """p50 / p99 / p999 of latencies in seconds, as milliseconds."""
+    ms = np.asarray(lat_s, np.float64) * 1e3
+    return {f"p{p}": float(np.percentile(ms, q))
+            for p, q in (("50", 50), ("99", 99), ("999", 99.9))}
+
+
+def engine_closed_loop(engine, Q, *, threads: int = SERVE_THREADS,
+                       rows=None, span_of=None):
+    """Every row of ``Q`` (or ``rows``) once, from ``threads`` submitting
+    threads, each waiting for its answer before its next request. Returns
+    ``(answers by row, latencies s, q/s)``; ``span_of(i)`` may give a
+    trace for row ``i``, finished when its answer arrives."""
+    rows = np.arange(len(Q)) if rows is None else np.asarray(rows)
+    out, lat, errors = {}, {}, []
+
+    def worker(w):
+        try:
+            for i in rows[w::threads].tolist():
+                tr = span_of(i) if span_of is not None else None
+                t0 = time.perf_counter()
+                req = engine.submit(Q[i], span=tr.root if tr else None)
+                out[i] = req.wait(timeout=300)
+                lat[i] = time.perf_counter() - t0
+                if tr is not None:
+                    tr.finish(outcome="ok")
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    pool = [threading.Thread(target=worker, args=(w,))
+            for w in range(threads)]
+    t0 = time.perf_counter()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=600)
+    elapsed = time.perf_counter() - t0
+    require(not errors and not any(t.is_alive() for t in pool),
+            f"closed loop failed: {errors[:3]}")
+    return out, np.array([lat[i] for i in rows.tolist()]), len(rows) / elapsed
+
+
+def engine_open_loop(engine, Q, *, n: int, qps: float, seed: int):
+    """``n`` Poisson arrivals at ``qps`` (``bench_serve._open_loop``'s
+    schedule): the dispatcher never waits for an answer; each request's
+    latency runs from its submit to its completion callback."""
+    rng = np.random.default_rng(seed)
+    order = rng.integers(0, len(Q), n)
+    gaps = rng.exponential(1.0 / qps, n)
+    t_sub, t_done = np.zeros(n), np.zeros(n)
+    reqs = []
+    next_at = time.perf_counter()
+    for i in range(n):
+        next_at += gaps[i]
+        delay = next_at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t_sub[i] = time.perf_counter()
+        reqs.append(engine.submit(
+            Q[order[i]],
+            on_done=lambda r, i=i: t_done.__setitem__(i, time.perf_counter())))
+    answers = [r.wait(timeout=300) for r in reqs]
+    return order, answers, t_done - t_sub
+
+
+def same_rows(answers, rows, want_d, want_i, what: str) -> None:
+    """Each engine answer bit-equal to its row of the plan's result."""
+    for (d, i), row in zip(answers, rows):
+        require(np.array_equal(i, want_i[row]) and np.array_equal(
+            d, want_d[row]), f"{what}: the answer to query {row} differs "
+            f"from its row of the plan's result")
+
+
+def phase_serve_engine(main: dict) -> dict:
+    """(a) The batching engine over the 1M index (``launch/serve.py``'s
+    defaults): a closed loop of the 1,000 queries from 8 threads, answers
+    bit-equal to the plan's rows, then 2,000 open-loop Poisson arrivals at
+    0.6 x the closed-loop rate, and the device busy share of ~1 s of the
+    open loop."""
+    from repro_torch.query import Query
+    from repro_torch.serving import BatchingEngine, QueryHandler
+
+    idx, res = main["idx"], main["res"]
+    Q = main["Qc"].cpu().numpy()
+    want_d, want_i = res.dists.cpu().numpy(), res.ids.cpu().numpy()
+    eng = BatchingEngine(QueryHandler(idx, Query(k=10, beam=32)),
+                         batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS)
+    try:
+        eng.submit(Q[0]).wait(timeout=300)  # warm-up
+        before = eng.stats
+        start_phase()
+        out, lat, qps = engine_closed_loop(eng, Q)
+        after = eng.stats
+        occ = ((after["occupancy_sum"] - before["occupancy_sum"])
+               / max(1, after["batches"] - before["batches"]))
+        same_rows([out[i] for i in range(len(Q))], range(len(Q)), want_d,
+                  want_i, "serve-engine closed loop")
+        order, answers, open_lat = engine_open_loop(
+            eng, Q, n=SERVE_OPEN, qps=OPEN_LOAD * qps, seed=3)
+        same_rows(answers, order, want_d, want_i, "serve-engine open loop")
+        counts = launched("serve-engine")
+        prof = profile_breakdown(
+            f"serve-engine open loop, ~1 s at {OPEN_LOAD * qps:.0f} q/s",
+            lambda: engine_open_loop(eng, Q, n=int(OPEN_LOAD * qps),
+                                     qps=OPEN_LOAD * qps, seed=4))
+    finally:
+        eng.close()
+    closed, opened = pcts(lat), pcts(open_lat)
+    log(f"[serve-engine] BatchingEngine(batch {SERVE_BATCH}, max_wait "
+        f"{SERVE_WAIT_MS} ms) over the 1M index, Query(k=10, beam=32): "
+        f"closed loop {len(Q)} queries from {SERVE_THREADS} threads "
+        f"{qps:.1f} q/s, p50 {closed['p50']:.3f} ms, p99 "
+        f"{closed['p99']:.3f} ms, mean occupancy {occ:.3f}; every answer "
+        f"bit-equal to its row of idx.plan(query)(test)")
+    log(f"[serve-engine] open loop {SERVE_OPEN} Poisson arrivals at "
+        f"{OPEN_LOAD * qps:.1f} q/s: p50 {opened['p50']:.3f} ms, p99 "
+        f"{opened['p99']:.3f} ms, p999 {opened['p999']:.3f} ms; answers "
+        f"bit-equal to the plan's rows")
+    return dict(qps=qps, closed=closed, open=opened, occupancy=occ,
+                counts=counts, profile=prof)
+
+
+def phase_serve_churn(main: dict, data: np.ndarray, qps: float) -> dict:
+    """(b) The engine with live writes over a ``from_arrays`` copy of the 1M
+    index (``configs/pdasc.py``'s delta capacity 4,096 and compaction at
+    half of it): 4,096 searches, 2,560 writes interleaved (upserts of
+    resident rows + N(0, 0.01) noise, every fifth write a delete of an id
+    upserted earlier), more upserts if those trip no swap, and a tail
+    quarter of searches after the last write."""
+    from repro_torch import obs
+    from repro_torch.core.index import PDASCIndex
+    from repro_torch.online import EpochHandle
+    from repro_torch.query import Query
+    from repro_torch.serving import BatchingEngine, QueryHandler
+
+    q = Query(k=10, beam=32)
+    Q = main["Qc"].cpu().numpy()
+    idx = PDASCIndex.from_arrays(*main["idx"].to_arrays(), device="cuda")
+    idx.enable_mutations(delta_capacity=SERVE_CHURN["delta_capacity"])
+    handle = EpochHandle(idx, delta_fill=SERVE_CHURN["delta_fill"],
+                         compact_kwargs=COMPACT_KW)
+    rng = np.random.default_rng(5)
+    n_search, n_writes = SERVE_CHURN["searches"], SERVE_CHURN["writes"]
+    tail = n_search // 4
+    head = n_search - tail
+    write_at = np.sort(rng.choice(head, n_writes, replace=True))
+    comp = obs.histogram(obs.names.ONLINE_COMPACTION_TIME)
+    comp0 = comp.snapshot()
+    eng = BatchingEngine(QueryHandler(handle, q), batch_size=SERVE_BATCH,
+                         max_wait_ms=SERVE_WAIT_MS,
+                         pad_payload=np.zeros(Q.shape[1], np.float32),
+                         write_handler=handle.apply_writes)
+    searches = []  # (engine request, query vector, submit seq, own id)
+    deleted_at = {}  # id -> submit seq of its delete
+    upserts = []  # (request, vector)
+    seq = 0
+    pending_checks = []
+    t_sub, t_done = {}, {}
+
+    def search(vec, own=None):
+        nonlocal seq
+        i = len(searches)
+        t_sub[i] = time.perf_counter()
+        req = eng.submit(vec, on_done=lambda r, i=i: t_done.__setitem__(
+            i, time.perf_counter()))
+        searches.append((req, vec, seq, own))
+        seq += 1
+
+    def upsert():
+        nonlocal seq
+        vec = data[rng.integers(len(data))] + rng.normal(
+            0, SERVE_CHURN["noise"], data.shape[1]).astype(np.float32)
+        upserts.append((eng.submit_upsert(vec), vec))
+        seq += 1
+        return len(upserts) - 1
+
+    def delete():
+        nonlocal seq
+        while True:  # an id upserted earlier and not yet deleted
+            j = int(rng.integers(len(upserts)))
+            victim = int(np.asarray(upserts[j][0].wait(timeout=300))[0])
+            if victim not in deleted_at:
+                break
+        deleted_at[victim] = seq
+        eng.submit_delete(np.array([victim], np.int32)).wait(timeout=300)
+        seq += 1
+
+    try:
+        eng.submit(Q[0]).wait(timeout=300)  # warm-up
+        start_phase()
+        gaps = rng.exponential(1.0 / (OPEN_LOAD * qps), n_search)
+        w = 0
+        t0 = time.perf_counter()
+        next_at = t0
+        for s in range(head):
+            while w < n_writes and write_at[w] == s:
+                if w % SERVE_CHURN["delete_every"] == 4 and upserts:
+                    delete()
+                else:
+                    j = upsert()
+                    if j % 16 == 15 and j < SERVE_CHURN["delta_capacity"] * \
+                            SERVE_CHURN["delta_fill"] - 1:
+                        # read-your-writes: the vector, searched right after
+                        # its upsert (and before the swap), comes back first
+                        pending_checks.append(len(searches))
+                        search(upserts[j][1], own=j)
+                w += 1
+            next_at += gaps[s]
+            delay = next_at - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            search(Q[rng.integers(len(Q))])
+        extra = 0
+        upserts[-1][0].wait(timeout=300)
+        while handle.swaps == 0:  # the stream tripped no swap: keep writing
+            upsert()
+            extra += 1
+            upserts[-1][0].wait(timeout=300)
+            search(Q[rng.integers(len(Q))])
+        tail_rows = rng.integers(0, len(Q), tail)
+        first_tail = len(searches)
+        for r in tail_rows:
+            search(Q[r])
+        answers = [req.wait(timeout=600) for req, _, _, _ in searches]
+        wall = time.perf_counter() - t0
+        counts = launched("serve-churn")
+    finally:
+        eng.close()
+    ids = [np.asarray(u.wait(timeout=60)) for u, _ in upserts]
+    for i in pending_checks:
+        require(int(answers[i][1][0]) == int(ids[searches[i][3]][0]),
+                f"read-your-writes: upsert {searches[i][3]} searched right "
+                f"after it did not come back first")
+    for (req, _, s, _), (_, got) in zip(searches, answers):
+        late = [x for x in got.tolist() if deleted_at.get(x, seq) < s]
+        require(not late, f"deleted ids {late} served after their delete")
+    final = handle.current.plan(q)(_cuda(Q[tail_rows]))
+    fd, fi = final.dists.cpu().numpy(), final.ids.cpu().numpy()
+    same_rows(answers[first_tail:], range(tail), fd, fi,
+              "serve-churn tail quarter")
+    lat = [t_done[i] - t_sub[i] for i in range(len(searches))]
+    c1 = comp.snapshot()
+    swaps_s = c1["sum"] - comp0["sum"]
+    n_swaps = c1["count"] - comp0["count"]
+    require(n_swaps >= 1 and handle.swaps >= 1, "no epoch swap under traffic")
+    p = pcts(lat)
+    log(f"[serve-churn] {len(searches)} searches (open loop at "
+        f"{OPEN_LOAD * qps:.1f} q/s) with {len(upserts)} upserts "
+        f"({extra} past the planned {n_writes} writes to trip the swap) and "
+        f"{len(deleted_at)} deletes through submit_upsert/submit_delete: "
+        f"{wall:.3f} s, epoch swaps {handle.swaps} (epoch "
+        f"{handle.current.epoch}), online_compaction_seconds {n_swaps} "
+        f"swap(s) {swaps_s:.3f} s; search p50 {p['p50']:.3f} ms, p99 "
+        f"{p['p99']:.3f} ms (the swap stall included), p999 "
+        f"{p['p999']:.3f} ms; {len(pending_checks)} upserted vectors found "
+        f"first right after their upsert, no deleted id served after its "
+        f"delete, the tail {tail} answers bit-equal to the final epoch's plan")
+    return dict(swaps=handle.swaps, swap_s=swaps_s, lat=p, extra=extra,
+                counts=counts)
+
+
+def make_tier(idx, query, fault_plan=None, **telemetry):
+    """4 replicas of ``idx`` behind the router (``bench_serve._make_tier``'s
+    tier and router knobs), each engine warmed; returns ``(replica set,
+    router, device bytes the replicas added)``."""
+    import torch
+    from repro_torch.query import degraded
+    from repro_torch.serving import ReplicaSet, Router, RouterConfig
+
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    rs = ReplicaSet(idx, query, n_replicas=TIER["replicas"],
+                    batch_size=TIER["batch"], max_wait_ms=TIER["wait_ms"],
+                    degraded_query=degraded(query), fault_plan=fault_plan,
+                    epoch_kwargs=dict(compact_kwargs=COMPACT_KW))
+    torch.cuda.synchronize()
+    added = torch.cuda.memory_allocated() - m0
+    router = Router(rs, RouterConfig(
+        deadline_s=5.0, max_retries=2, hedge=True, hedge_min_s=0.02,
+        eject_failures=2, probe_cooldown_s=0.1, probe_timeout_s=0.25,
+        probe_interval_s=0.02, seed=0, **telemetry))
+    for req in [r.submit(r.probe_payload()) for r in rs.replicas]:
+        req.wait(timeout=300)
+    return rs, router, added
+
+
+def host_contention(idx, Q) -> dict:
+    """Plan calls (8 queries, beam 32, results to the host) a second from
+    1, 2 and 4 threads at once: what several serving threads in one
+    process cost each other (``tools/host_contention.py`` adds the
+    diagnostic variants)."""
+    from repro_torch.query import Query
+
+    plan = idx.plan(Query(k=10, beam=32))
+    x = _cuda(Q[:8])
+    plan(x).ids.cpu()
+
+    def rate(threads, calls):
+        def work():
+            for _ in range(calls):
+                plan(x).ids.cpu()
+
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        t0 = time.perf_counter()
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=600)
+        return threads * calls / (time.perf_counter() - t0)
+
+    out = {f"{n} threads": rate(n, 30) for n in (1, 2, 4)}
+    log(f"[serve-replicated] host contention, plan calls/s (8 queries, "
+        f"beam 32, results to the host): "
+        f"{json.dumps({k: round(v, 1) for k, v in out.items()})}")
+    return out
+
+
+def router_closed_loop(router, Q, *, workers: int = 8, per: int = 40):
+    """Saturation q/s: every worker pinned in a search loop
+    (``bench_serve._closed_loop_qps``)."""
+    errors = []
+
+    def worker(w):
+        rng = np.random.default_rng(w)
+        for _ in range(per):
+            try:
+                router.search(Q[rng.integers(len(Q))])
+            except Exception as e:  # noqa: BLE001 — counted below
+                errors.append(type(e).__name__)
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(workers)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return workers * per / (time.perf_counter() - t0), errors
+
+
+def router_open_loop(router, Q, *, qps: float, n=None, seed: int,
+                     stop=None):
+    """Poisson arrivals at ``qps`` (``bench_serve._open_loop``): ``n`` of
+    them, or until ``stop`` is set. Each request waits on its own thread.
+    Returns ``(rows, results or None, error kinds)``."""
+    rng = np.random.default_rng(seed)
+    rows, results, errors, threads = [], [], [], []
+    lock = threading.Lock()
+
+    def fire(i, row):
+        try:
+            res = router.search(Q[row])
+        except Exception as e:  # noqa: BLE001 — the caller-visible count
+            with lock:
+                errors.append(type(e).__name__)
+            return
+        results[i] = res
+
+    next_at = time.perf_counter()
+    i = 0
+    while (n is None or i < n) and not (stop is not None and stop.is_set()):
+        next_at += rng.exponential(1.0 / qps)
+        delay = next_at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        row = int(rng.integers(len(Q)))
+        rows.append(row)
+        results.append(None)
+        t = threading.Thread(target=fire, args=(i, row))
+        t.start()
+        threads.append(t)
+        i += 1
+    for t in threads:
+        t.join(timeout=120)
+    require(not any(t.is_alive() for t in threads), "a request hung")
+    return rows, results, errors
+
+
+def check_router_rows(rows, results, want_d, want_i, what: str) -> int:
+    """Every answer served on the full plan equals the single plan's row;
+    returns the count of degraded answers."""
+    degraded = 0
+    for row, res in zip(rows, results):
+        if res is None:
+            continue
+        if res.degraded:
+            degraded += 1
+            continue
+        require(np.array_equal(res.ids, want_i[row])
+                and np.array_equal(res.dists, want_d[row]),
+                f"{what}: replica r{res.replica}'s answer to query {row} "
+                f"differs from the single plan's row")
+    return degraded
+
+
+def check_span_tree(trace) -> dict:
+    """The exemplar's spans: every child inside its parent, and the
+    self-times summing to the root's wall time within 10%. One exception,
+    by the tracer's design (``repro``'s too): a hedged request's losing
+    attempt ends when the winner returns, and the engine spans of its
+    batch, already running, may end (or start) after it; they are counted,
+    and the winning leg and the root hold every child inside."""
+    names = set()
+    total = 0.0
+    overrun = 0
+
+    def visit(span, lost: bool) -> None:
+        nonlocal total, overrun
+        names.add(span.name)
+        total += span.self_time
+        for c in span.children:
+            require(c.t1 is not None, f"span {c.name} never ended")
+            inside = span.t0 <= c.t0 and c.t1 <= span.t1
+            require(inside or lost, f"span {c.name} lies outside its "
+                    f"parent {span.name}")
+            overrun += not inside
+            visit(c, lost or c.attrs.get("outcome") in ("cancelled",
+                                                         "deadline"))
+
+    visit(trace.root, False)
+    for need in ("attempt", "queue_wait", "batch_wait", "execute", "plan"):
+        require(need in names, f"the exemplar has no {need} span: "
+                f"{sorted(names)}")
+    wall = trace.root.duration
+    require(abs(total - wall) <= 0.1 * wall,
+            f"self-times sum to {total} s of a {wall} s request")
+    return dict(names=sorted(names), wall_ms=wall * 1e3,
+                self_sum_ms=total * 1e3, lost_leg_overruns=overrun)
+
+
+def record_samples(estimator) -> list:
+    """Wrap ``estimator.observe`` so that each sample it enqueues is also
+    kept here as ``(payload, served ids)``: the check can then re-answer
+    exactly the requests the estimate is made of."""
+    kept = []
+    observe = estimator.observe
+
+    def spy(seq, payload, served_ids, **kw):
+        took = observe(seq, payload, served_ids, **kw)
+        if took:
+            kept.append((np.array(payload, np.float32, copy=True),
+                         np.asarray(served_ids).reshape(-1).copy()))
+        return took
+
+    estimator.observe = spy
+    return kept
+
+
+def check_shadow(sampled, reference, est, Q, gt, form) -> dict:
+    """The shadow worker's own launch and its estimate. Each sampled query
+    goes through the knn wrapper at b = 1 against the estimator's device
+    reference (the live n: the shape the window launches, its many DB
+    splits merged by ``knn_merge_kernel``), held to ``knn_ref`` under the
+    tolerance rule. The estimate must then equal the served ids' recall
+    against those answers exactly (same kernel, same inputs, bit-identical
+    repeats), and against the ground truth's rows of the same queries:
+    an answer set may differ from its truth row only where the plain 10th
+    and 11th distances are a near-tie."""
+    import torch
+    from repro_torch.kernels import ref, topk
+
+    vecs, ids = reference
+    n, d = vecs.shape
+    geo = topk.knn_geometry(1, n, d, 10, form)
+    at = {Q[i].tobytes(): i for i in range(len(Q))}
+    err, hits, hits_gt, tied = 0.0, 0, 0, 0
+    for payload, served in sampled:
+        row = at.get(payload.tobytes())
+        require(row is not None, "a shadow sample is no test query")
+        q = torch.from_numpy(payload[None]).cuda()
+        err = max(err, parity_knn(q, vecs, 10, form))
+        _, ki = topk.knn_cuda(q, vecs, 10, form)
+        rd, _ = ref.knn_ref(q, vecs, 11, form)
+        exact = set(ids[ki[0].cpu().numpy()].tolist())
+        truth = set(gt[row].tolist())
+        got = set(int(x) for x in served if x >= 0)
+        hits += len(got & exact)
+        hits_gt += len(got & truth)
+        if exact != truth:
+            r = rd[0].cpu().numpy().astype(np.float64)
+            require(abs(r[10] - r[9]) <= atol_of(r[:10]) + 1e-5 * abs(r[9]),
+                    f"query {row}: the shadow answer and the truth row "
+                    f"differ without a near-tie at the 10th place")
+            tied += 1
+    m = len(sampled)
+    require(m > 0 and est["queries"] == m and est["trials"] == 10 * m,
+            f"the estimate holds {est['queries']} samples, {m} were enqueued")
+    require(est["successes"] == hits,
+            f"shadow estimate {est['successes']} hits vs {hits} re-answered")
+    require(abs(hits_gt - hits) <= tied,
+            f"shadow estimate {hits} hits vs {hits_gt} against the truth "
+            f"rows of the same {m} queries ({tied} near-tied)")
+    log(f"[serve-replicated] shadow knn at [1, {n}, {d}, 10] ({geo.route}, "
+        f"{geo.splits} DB splits merged) against knn_ref on the {m} sampled "
+        f"queries: max err {err:.3g}; estimate {hits}/{10 * m} = "
+        f"{hits / (10 * m):.4f} equals the re-answered recall, and the "
+        f"ground truth's rows of the same queries give {hits_gt}/{10 * m} "
+        f"({tied} near-tied rows)")
+    return dict(shape=[1, n, d, 10], splits=geo.splits, max_abs_err=err,
+                samples=m, recall=hits / (10 * m),
+                recall_truth=hits_gt / (10 * m))
+
+
+def live_ids(rep) -> np.ndarray:
+    from repro_torch.online import live_dataset
+
+    return np.sort(live_dataset(rep.handle.current)[1])
+
+
+def flush(rs) -> None:
+    """Wait until every live replica applied the writes queued before
+    now (a search queued after them is answered after them)."""
+    for r in rs.replicas:
+        if r.alive:
+            r.submit(r.probe_payload()).wait(timeout=600)
+
+
+def phase_serve_replicated(main: dict, data: np.ndarray) -> dict:
+    """(c) ``bench_serve.py``'s tier at 1M: 4 replicas sharing the index,
+    the fault-free run with tracing (1 in 4) and shadow recall (1 in 16),
+    writes below the compaction threshold, kill + restart of a replica;
+    then (d) upserts that carry every replica past ``delta_fill=0.5``
+    under the same traffic; then the wedged run on a fresh tier."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.query import Query
+    from repro_torch.serving import FaultPlan
+
+    idx, res = main["idx"], main["res"]
+    Q = main["Qc"].cpu().numpy()
+    q = Query(k=10, beam=32)
+    want_d, want_i = res.dists.cpu().numpy(), res.ids.cpu().numpy()
+    resident = idx.memory_bytes()["total_resident"]
+    out = dict(contention=host_contention(idx, Q))
+    rs, router, added = make_tier(idx, q, trace_every=TRACE_EVERY,
+                                  shadow_every=SHADOW_EVERY)
+    try:
+        require(added < 0.05 * resident, f"4 replicas added {added} bytes "
+                f"on the device (index {resident} resident)")
+        start_phase()
+        sat, errs = router_closed_loop(router, Q)
+        require(not errs, f"closed loop errors: {errs[:5]}")
+        # the estimate and the check below cover the open loop's samples
+        # only: the closed loop's are answered before the reset
+        require(router.quality.drain(timeout=300), "shadow queue never drained")
+        router.quality.reset_stats()
+        sampled = record_samples(router.quality)
+        rows, results, errs = router_open_loop(
+            router, Q, qps=OPEN_LOAD * sat, n=TIER["open"], seed=11)
+        require(not errs, f"fault-free open loop errors: {errs}")
+        deg = check_router_rows(rows, results, want_d, want_i, "fault-free")
+        lat = pcts([r.latency_s for r in results])
+        require(router.quality.drain(timeout=300), "shadow queue never drained")
+        est = router.quality.estimate()
+        # the estimator's device reference of the live set it answered on
+        reference = router.quality._ref
+        require(reference is not None
+                and reference[0].shape[0] == idx.n_points,
+                "the shadow reference is not the live set")
+        gt = main["gt"]
+        offline = float(np.mean([
+            len(set(r.ids.tolist()) & set(gt[row].tolist())) / 10
+            for row, r in zip(rows, results)]))
+        require(est["recall"] is not None
+                and abs(est["recall"] - offline) <= 0.05,
+                f"shadow recall {est['recall']} vs offline {offline}")
+        ex = router.traces.exemplar(lat["p99"] / 1e3)
+        require(ex is not None, "no trace was retained")
+        tree = check_span_tree(ex)
+        events = router.event_counts()
+        log(f"[serve-replicated] {TIER['replicas']} replicas of the 1M index "
+            f"(batch {TIER['batch']}, max_wait {TIER['wait_ms']} ms, "
+            f"bench_serve's router): the replicas added {added} bytes on "
+            f"the device ({100 * added / resident:.3f}% of the index's "
+            f"{resident}); closed-loop saturation {sat:.1f} q/s; fault-free "
+            f"open loop {TIER['open']} at {OPEN_LOAD * sat:.1f} q/s: errors "
+            f"0, p50 {lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms, p999 "
+            f"{lat['p999']:.3f} ms, degraded {deg}, events {events}; "
+            f"answers on the full plan equal the single plan's rows")
+        log(f"[serve-replicated] shadow recall {est['recall']:.4f} "
+            f"[{est['wilson_lo']:.4f}, {est['wilson_hi']:.4f}] over "
+            f"{est['queries']} samples vs offline {offline:.4f} over the "
+            f"{len(rows)} served; p99 exemplar {tree['wall_ms']:.3f} ms, "
+            f"spans {tree['names']}, self-times sum {tree['self_sum_ms']:.3f}"
+            f" ms, {tree['lost_leg_overruns']} span(s) of a losing leg "
+            f"outside their parent")
+        log("[serve-replicated] p99 exemplar:\n" + ex.render())
+        out["fault_free"] = dict(sat=sat, lat=lat, degraded=deg,
+                                 shadow=est["recall"], offline=offline,
+                                 added=added)
+        # writes below the compaction threshold, then kill + restart
+        rng = np.random.default_rng(12)
+        new = []
+        for _ in range(TIER["upserts"]):
+            vec = data[rng.integers(len(data))] + rng.normal(
+                0, 0.01, data.shape[1]).astype(np.float32)
+            new += [int(x) for x in rs.upsert(vec)]
+        for victim in rng.choice(new, TIER["deletes"], replace=False):
+            require(int(rs.delete(np.array([victim]))) == 1, "delete missed")
+        flush(rs)
+        ref = live_ids(rs.replicas[0])
+        for r in rs.replicas[1:]:
+            require(np.array_equal(live_ids(r), ref),
+                    f"replica r{r.id}'s live set differs from r0's")
+        rs.kill(3)
+        rs.restart(3)
+        flush(rs)
+        require(np.array_equal(live_ids(rs.replicas[3]), ref),
+                "the restarted replica did not converge")
+        counts = launched("serve-replicated")
+        # launched after the window's read: a comparison launches no count
+        out["shadow"] = check_shadow(sampled, reference, est, Q, gt,
+                                     ops.resolve_form(idx.distance))
+        del reference
+        log(f"[serve-replicated] {TIER['upserts']} upserts + "
+            f"{TIER['deletes']} deletes through the replica set: the 4 "
+            f"live sets equal ({len(ref)} ids); kill(3) + restart(3) "
+            f"replays the log to the same live set")
+        out["swap"] = serve_replicated_swap(rs, router, Q, data, sat)
+    finally:
+        router.close(close_replicas=True)
+    del rs, router
+    torch.cuda.empty_cache()
+
+    rs, router, _ = make_tier(idx, q, FaultPlan.parse(WEDGE))
+    try:
+        start_phase()
+        rows, results, errs = router_open_loop(
+            router, Q, qps=OPEN_LOAD * sat, n=TIER["open"], seed=13)
+        require(not errs, f"wedged run: {len(errs)} caller-visible errors "
+                f"{sorted(set(errs))}")
+        t0 = time.time()
+        while router.event_counts().get("readmit", 0) == 0 \
+                and time.time() - t0 < 60:
+            router.search(Q[0])  # light traffic until the probe readmits
+            time.sleep(0.05)
+        events = router.event_counts()
+        require(events.get("eject", 0) > 0 and events.get("readmit", 0) > 0,
+                f"the wedged run's events hold no eject + readmit: {events}")
+        deg = check_router_rows(rows, results, want_d, want_i, "wedged")
+        lat = pcts([r.latency_s for r in results])
+        counts_w = launched("serve-replicated-wedge")
+    finally:
+        router.close(close_replicas=True)
+    log(f"[serve-replicated] wedged ({WEDGE}) open loop {TIER['open']} at "
+        f"{OPEN_LOAD * sat:.1f} q/s: errors 0, p50 {lat['p50']:.3f} ms, p99 "
+        f"{lat['p99']:.3f} ms, p999 {lat['p999']:.3f} ms, degraded {deg}, "
+        f"events {events}")
+    out["wedged"] = dict(lat=lat, degraded=deg, events=events)
+    out["counts"] = dict(counts, wedge=counts_w)
+    return out
+
+
+def serve_replicated_swap(rs, router, Q, data, sat) -> dict:
+    """(d) The fault-free traffic goes on at the same rate while batches of
+    upserts through the replica set carry all four replicas past
+    ``delta_fill=0.5``: every replica compacts at the same write, on its
+    engine's worker. What the callers see is printed, not required."""
+    from repro_torch import obs
+    from repro_torch.query import Query
+
+    q = Query(k=10, beam=32)
+    snap0 = obs.snapshot()
+    ev0 = router.event_counts()
+    stop = threading.Event()
+    box = {}
+    start_phase()
+    t0 = time.perf_counter()
+    traffic = threading.Thread(target=lambda: box.update(zip(
+        ("rows", "results", "errors"),
+        router_open_loop(router, Q, qps=OPEN_LOAD * sat, seed=14,
+                         stop=stop))))
+    traffic.start()
+    rng = np.random.default_rng(15)
+    # just enough upserts to carry each replica's delta cursor past the
+    # trigger once: the replicas apply one log, so all trip at its last
+    delta = rs.replicas[0].handle.current.delta
+    need = int(np.ceil(delta.capacity * 0.5)) - delta.size
+    n_up = 0
+    try:
+        while n_up < need:
+            src = rng.integers(len(data), size=min(SWAP_UPSERT_BATCH,
+                                                   need - n_up))
+            rs.upsert(data[src] + rng.normal(
+                0, 0.01, (len(src), data.shape[1])).astype(np.float32),
+                timeout=600)
+            n_up += len(src)
+        deadline = time.time() + 600
+        while not all(r.handle.swaps >= 1 for r in rs.replicas):
+            require(time.time() < deadline, "the replicas never compacted")
+            time.sleep(0.05)
+        time.sleep(0.5)  # traffic on past the last swap
+    finally:
+        stop.set()
+        traffic.join(timeout=300)
+    swap_wall = time.perf_counter() - t0
+    rows, results, errors = box["rows"], box["results"], box["errors"]
+    ok = [r for r in results if r is not None]
+    lat = pcts([r.latency_s for r in ok]) if ok else {}
+    ev = router.event_counts()
+    ev_delta = {k: v - ev0.get(k, 0) for k, v in ev.items()
+                if v != ev0.get(k, 0)}
+    snap = obs.snapshot()
+
+    def total(s, name):
+        e = s.get(name)
+        return sum(r["value"] for r in e["series"]) if e else 0.0
+
+    misses = total(snap, obs.names.ROUTER_DEADLINE_EXCEEDED) - total(
+        snap0, obs.names.ROUTER_DEADLINE_EXCEEDED)
+    comp = snap[obs.names.ONLINE_COMPACTION_TIME]["series"][0]["hist"]
+    flush(rs)
+    ref = live_ids(rs.replicas[0])
+    for r in rs.replicas[1:]:
+        require(np.array_equal(live_ids(r), ref),
+                f"replica r{r.id}'s live set differs after the swap")
+    counts = launched("serve-replicated-swap")
+    # answers after every swap against each replica's new epoch
+    wants = {}
+    for r in rs.replicas:
+        res = r.handle.current.plan(q)(_cuda(Q))
+        wants[r.id] = (res.dists.cpu().numpy(), res.ids.cpu().numpy())
+    prow, pres, perr = router_open_loop(router, Q, qps=OPEN_LOAD * sat,
+                                        n=TIER["open"] // 3, seed=16)
+    checked = 0
+    for row, res in zip(prow, pres):
+        if res is None or res.degraded:
+            continue
+        wd, wi = wants[res.replica]
+        require(np.array_equal(res.ids, wi[row])
+                and np.array_equal(res.dists, wd[row]),
+                f"after the swap, r{res.replica}'s answer to query {row} "
+                f"differs from its new epoch's plan")
+        checked += 1
+    kinds = {k: errors.count(k) for k in sorted(set(errors))}
+    require(all(r.handle.swaps == 1 for r in rs.replicas),
+            f"swaps {[r.handle.swaps for r in rs.replicas]}: not one each")
+    log(f"[serve-replicated-swap] {n_up} upserts in batches of "
+        f"{SWAP_UPSERT_BATCH} carried all 4 replicas past delta_fill 0.5 "
+        f"under open-loop traffic at {OPEN_LOAD * sat:.1f} q/s: window "
+        f"{swap_wall:.3f} s, {len(rows)} requests, caller-visible errors "
+        f"{len(errors)} {kinds}, deadline misses {misses:.0f}, router events "
+        f"{ev_delta}, p50 {lat.get('p50', float('nan')):.3f} ms, p99 "
+        f"{lat.get('p99', float('nan')):.3f} ms, p999 "
+        f"{lat.get('p999', float('nan')):.3f} ms; compactions so far "
+        f"{comp['count']} ({comp['sum']:.3f} s in all); epochs "
+        f"{[r.handle.current.epoch for r in rs.replicas]}, live sets equal "
+        f"({len(ref)} ids); after the swap {checked} answers equal their "
+        f"replica's new epoch ({len(perr)} errors)")
+    return dict(errors=len(errors), kinds=kinds, misses=misses,
+                events=ev_delta, lat=lat, window_s=swap_wall, upserts=n_up,
+                requests=len(rows), counts=counts)
+
+
+def parse_prometheus(text: str) -> int:
+    """Count the samples of a Prometheus text exposition; fail on a line
+    that is neither a comment nor ``name{labels} value``."""
+    import re
+
+    sample = re.compile(
+        r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|'
+        r'\\.)*",?)*\})? [-+]?([0-9.eE+-]+|Inf|NaN)$')
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        require(sample.match(line) is not None,
+                f"to_prometheus line does not parse: {line!r}")
+        n += 1
+    return n
+
+
+def phase_serve_two_stage(main: dict, workdir: str) -> dict:
+    """(e) The engine over the released int8 index's two-stage plan with
+    ``launch/serve.py``'s prefetch hook: 1,000 requests, 1 in 4 traced;
+    the registry's snapshot, its Prometheus text and the offline report;
+    the throughput with the registry on and off."""
+    from repro_torch import obs
+    from repro_torch.launch.serve import granule_prefetch
+    from repro_torch.query import Query
+    from repro_torch.serving import BatchingEngine, QueryHandler
+
+    idx = main["idx"]
+    Q = main["Qc"].cpu().numpy()
+    q = Query(k=10, execution="two_stage")
+    want = idx.plan(q)(main["Qc"])
+    want_d, want_i = want.dists.cpu().numpy(), want.ids.cpu().numpy()
+    eng = BatchingEngine(QueryHandler(idx, q), batch_size=SERVE_BATCH,
+                         max_wait_ms=SERVE_WAIT_MS,
+                         pad_payload=np.zeros(Q.shape[1], np.float32),
+                         prefetch_fn=granule_prefetch(idx, batch=SERVE_BATCH,
+                                                      beam=32))
+    sampler = obs.TraceSampler(TRACE_EVERY, buffer=obs.TraceBuffer(
+        maxlen=len(Q)))
+    try:
+        eng.submit(Q[0]).wait(timeout=300)
+        start_phase()
+        out, lat, qps = engine_closed_loop(
+            eng, Q, span_of=lambda i: sampler.sample("request", i,
+                                                     kind="search"))
+        counts = launched("serve-two-stage")
+        same_rows([out[i] for i in range(len(Q))], range(len(Q)), want_d,
+                  want_i, "serve-two-stage")
+        traces = sampler.buffer.traces()
+        require(len(traces) == len(Q) // TRACE_EVERY,
+                f"{len(traces)} traces retained")
+        for tr in traces:
+            names = {s.name for s in tr.root.walk()}
+            for need in ("execute", "plan", "descend", "scan", "rerank",
+                         "granule_fetch"):
+                require(need in names, f"trace {tr.seq} has no {need} span")
+        snap = obs.snapshot()
+        n_series = sum(len(v["series"]) for v in snap.values())
+        subs = sorted({obs.names.subsystem(k) for k in snap})
+
+        def nonzero(sub):
+            return sum(r.get("value", 0) or r.get("hist", {}).get("count", 0)
+                       for k, v in snap.items()
+                       if obs.names.subsystem(k) == sub
+                       for r in v["series"])
+
+        for sub in ("engine", "router", "plan", "store", "online"):
+            require(nonzero(sub) > 0, f"the {sub} series are all zero")
+        require(n_series >= 25 and len(subs) >= 5,
+                f"{n_series} series over {subs}")
+        n_samples = parse_prometheus(obs.to_prometheus(snap))
+        m_path = os.path.join(workdir, "serve_metrics.json")
+        t_path = os.path.join(workdir, "serve_traces.json")
+        with open(m_path, "w") as f:
+            f.write(obs.to_json(snap))
+        with open(t_path, "w") as f:
+            f.write(sampler.buffer.to_json())
+        rep = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report", "--metrics",
+             m_path, "--trace", t_path], capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, PYTHONPATH=SRC))
+        require(rep.returncode == 0 and "series" in rep.stdout,
+                f"obs.report failed: {rep.stderr[-2000:]}")
+        # the registry on and off, untraced, in turns (off, on, on, off)
+        rates = {True: [], False: []}
+        for on in (False, True, True, False):
+            obs.set_enabled(on)
+            rates[on].append(engine_closed_loop(eng, Q)[2])
+        obs.set_enabled(True)
+    finally:
+        obs.set_enabled(True)
+        eng.close()
+        if idx.store.exact._pool is not None:
+            idx.store.exact._pool.close()
+    ex = sampler.buffer.exemplar(float(np.percentile(lat, 99)))
+    p = pcts(lat)
+    on, off = float(np.mean(rates[True])), float(np.mean(rates[False]))
+    log(f"[serve-two-stage] engine over Query(k=10, execution='two_stage') "
+        f"on the released int8 index with the prefetch hook: {len(Q)} "
+        f"requests from {SERVE_THREADS} threads, 1 in {TRACE_EVERY} traced: "
+        f"{qps:.1f} q/s, p50 {p['p50']:.3f} ms, p99 {p['p99']:.3f} ms; "
+        f"answers bit-equal to the plan's rows; {len(traces)} traces each "
+        f"with descend, scan, rerank and granule_fetch")
+    log(f"[serve-two-stage] registry: {n_series} series over {subs}, "
+        f"{n_samples} Prometheus samples parsed; python -m "
+        f"repro_torch.obs.report rendered the snapshot and "
+        f"{len(traces)} traces ({len(rep.stdout.splitlines())} lines)")
+    log(f"[serve-two-stage] untraced closed loop, registry on "
+        f"{[round(r, 1) for r in rates[True]]} q/s vs off "
+        f"{[round(r, 1) for r in rates[False]]} q/s: ratio {on / off:.3f} "
+        f"(a wall-clock ratio, printed only)")
+    log("[serve-two-stage] p99 exemplar:\n" + ex.render())
+    return dict(qps=qps, lat=p, n_series=n_series, subsystems=subs,
+                on_off=on / off, counts=counts)
+
+
+def phase_serve_cli() -> dict:
+    """(f) ``python -m repro_torch.launch.serve`` on both paths, as
+    subprocesses on the card."""
+    out = {}
+    base = ["--n", "200000", "--gl", "256", "--queries", "512", "--batch",
+            "32", "--mode", "beam", "--trace-sample", "8", "--shadow-sample",
+            "16"]
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
+        for name, extra in (
+                ("single", ["--churn", "64"]),
+                ("replicated", ["--replicas", "3", "--faults",
+                                "wedge:r1@20+8:0.4", "--churn", "12"])):
+            cmd = [sys.executable, "-m", "repro_torch.launch.serve", *base,
+                   *extra, "--metrics-dump", os.path.join(work, f"{name}.json")]
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=600, cwd=HERE,
+                                 env=dict(os.environ, PYTHONPATH=SRC))
+            secs = time.perf_counter() - t0
+            lines = [ln for ln in run.stdout.splitlines()
+                     if "recall" in ln or "errors=" in ln]
+            require(run.returncode == 0, f"serve CLI ({name}) exited "
+                    f"{run.returncode}: {run.stderr[-3000:]}")
+            require(any("recall" in ln for ln in lines),
+                    f"serve CLI ({name}) printed no recall line")
+            if name == "replicated":
+                require(any("errors=0" in ln for ln in lines),
+                        f"serve CLI (replicated): {lines}")
+            require(os.path.getsize(os.path.join(work, f"{name}.json")) > 0,
+                    f"serve CLI ({name}) dumped no metrics")
+            for ln in lines:
+                log(f"[serve-cli] {name}: {ln}")
+            log(f"[serve-cli] {name}: exit 0 in {secs:.1f} s")
+            out[name] = dict(secs=secs, lines=lines)
+    return out
+
+
 def phase_recall_record() -> float:
     import torch
     from repro_torch.baselines import exact_knn
@@ -1856,13 +2841,18 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
         phase_online(main_run, data, work)
-        store = phase_store(main_run, work)
+        engine = phase_serve_engine(main_run)
+        phase_serve_churn(main_run, data, engine["qps"])
+        phase_serve_replicated(main_run, data)
+        store = phase_store(main_run, work)  # releases the dense payload
         rows.append(phase_scan_timing(main_run, store))
+        phase_serve_two_stage(main_run, work)
         phase_store_churn(main_run, data)
     for r in rows:  # each phase's launches of the kernel, beside the main path's
         r["phase_launches"] = {ph: c[r["name"]] for ph, c in PHASE_LAUNCHES.items()}
     phase_recall_record()
     phase_quickstart()
+    phase_serve_cli()
     torch.cuda.synchronize()
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi())

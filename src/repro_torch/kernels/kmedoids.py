@@ -22,8 +22,8 @@ import torch
 from typing import NamedTuple
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ops as _ops
 
-launches = 0  # kernel launches since the last ops.reset_launch_counts()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"swap_launch": [_P] * 11 + [_I] * 3 + [_P]}
@@ -93,7 +93,6 @@ def swap_deltas_cuda(
 ) -> torch.Tensor:
     """``D [G, g, g]`` fp32, ``d1/d2 [G, g]`` fp32, ``n1 [G, g]`` int32,
     ``valid [G, g]`` bool, all contiguous CUDA. Returns ``[G, k, g]``."""
-    global launches
     G, g, g2 = D.shape
     if g != g2:
         raise ValueError(f"D must be [G, g, g], got {tuple(D.shape)}")
@@ -127,5 +126,5 @@ def swap_deltas_cuda(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "swap")
-    launches += 1
+    _ops.count_launch("swap_deltas")
     return out

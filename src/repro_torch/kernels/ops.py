@@ -27,6 +27,7 @@ show that it went through the kernels.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -59,23 +60,30 @@ def resolve_form(distance) -> Optional[str]:
     return _ref.FORM_OF.get(name) if name else None
 
 
+# Launches per CUDA kernel since the last reset. Each wrapper adds one
+# where it launches its kernel, from whichever thread serves the call (the
+# serving engines' workers, the shadow-recall worker), so the adds take a
+# lock: a bare ``n += 1`` can lose counts between threads.
+_LAUNCH_LOCK = threading.Lock()
+_LAUNCHES = dict.fromkeys(("pairwise", "rank", "knn", "swap_deltas", "scan"), 0)
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` (a key of :func:`launch_counts`)."""
+    with _LAUNCH_LOCK:
+        _LAUNCHES[name] += 1
+
+
 def launch_counts() -> dict:
     """Kernel launches per CUDA kernel since the last reset."""
-    return {
-        "pairwise": _pw.launches,
-        "rank": _tk.rank_launches,
-        "knn": _tk.knn_launches,
-        "swap_deltas": _kmk.launches,
-        "scan": _qk.launches,
-    }
+    with _LAUNCH_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    _pw.launches = 0
-    _tk.rank_launches = 0
-    _tk.knn_launches = 0
-    _kmk.launches = 0
-    _qk.launches = 0
+    with _LAUNCH_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def _on_cuda(*tensors) -> bool:

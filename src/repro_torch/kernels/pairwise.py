@@ -16,9 +16,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ops as _ops
 from repro_torch.kernels.ref import FORMS
 
-launches = 0  # kernel launches since the last ops.reset_launch_counts()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"pairwise_launch": [_P] * 3 + [_I] * 6 + [_P]}
@@ -74,7 +74,6 @@ def pairwise_geometry(G: int, m: int, n: int, sym: bool = False
 def pairwise_cuda(X: torch.Tensor, Y: torch.Tensor, form: str) -> torch.Tensor:
     """Distances of every row of ``X`` to every row of ``Y`` (fp32 CUDA,
     contiguous, 2-D or batched 3-D; ``X`` may be ``Y``)."""
-    global launches
     if form not in FORMS:
         raise ValueError(f"unsupported form {form!r}; kernels support {FORMS}")
     batched = X.dim() == 3
@@ -99,5 +98,5 @@ def pairwise_cuda(X: torch.Tensor, Y: torch.Tensor, form: str) -> torch.Tensor:
         torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check(err, "pairwise")
-    launches += 1
+    _ops.count_launch("pairwise")
     return out if batched else out[0]

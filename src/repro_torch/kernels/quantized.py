@@ -19,9 +19,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, topk
+from repro_torch.kernels import ops as _ops
 from repro_torch.kernels.ref import CODE_FORMATS, FORMS, packed_width
 
-launches = 0  # launches since the last ops.reset_launch_counts()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SCAN = {"scan_launch": [_P] * 7 + [_I] * 13 + [_P]}
@@ -69,7 +69,6 @@ def scan_cuda(
     ``r`` takes ``scales[r // block]``), ``cand_idx [b, w]`` int32, ``ok
     [b, w]`` bool, all contiguous on one CUDA device. Returns ``(dists[b, k],
     slots[b, k] in [0, w))``."""
-    global launches
     if form not in FORMS:
         raise ValueError(f"unsupported form {form!r}")
     if fmt not in CODE_FORMATS:
@@ -110,5 +109,5 @@ def scan_cuda(
         torch.cuda.current_stream(Q.device).cuda_stream,
     )
     _build.check(err, "scan")
-    launches += 1
+    _ops.count_launch("scan")
     return out_d, out_s

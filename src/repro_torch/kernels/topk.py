@@ -20,10 +20,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ops as _ops
 from repro_torch.kernels.ref import FORMS, NORM_FORMS, VPU_FORMS
 
-rank_launches = 0  # launches since the last ops.reset_launch_counts()
-knn_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _RANK = {"rank_launch": [_P] * 7 + [_I] * 8 + [_P]}
@@ -116,7 +115,6 @@ def rank_cuda(
     """``Q [b, d]`` fp32, ``points [n, d]`` fp32, ``sq_norm [n]`` fp32 (norm
     forms), ``cand_idx [b, w]`` int32, ``ok [b, w]`` bool. Returns
     ``(dists[b, k], slots[b, k] in [0, w))``."""
-    global rank_launches
     if form not in FORMS:
         raise ValueError(f"unsupported form {form!r}")
     b, d = Q.shape
@@ -145,7 +143,7 @@ def rank_cuda(
         torch.cuda.current_stream(Q.device).cuda_stream,
     )
     _build.check(err, "rank")
-    rank_launches += 1
+    _ops.count_launch("rank")
     return out_d, out_s
 
 
@@ -229,7 +227,6 @@ def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``Q [q, d]``, ``DB [n, d]`` fp32 CUDA. Returns ``(dists[q, k],
     ids[q, k] int32)``."""
-    global knn_launches
     if form not in FORMS:
         raise ValueError(f"unsupported form {form!r}")
     nq, d = Q.shape
@@ -273,5 +270,5 @@ def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "knn")
-    knn_launches += 1
+    _ops.count_launch("knn")
     return out_d, out_i

@@ -15,17 +15,20 @@ ops to the live epoch under one lock and then runs the swap policy:
 :class:`WriteLog` is the shared, append-only, sequenced record of accepted
 writes that a replicated deployment replays onto a lagging replica.
 
-``repro``'s handle also reports its writes, errors, swaps, compaction
-times and tier gauges to its metrics registry; the port has no registry
-yet, and those counters come with its observability layer.
+The handle reports its writes, write errors, swaps, compaction times and
+tier gauges to the ``repro_torch.obs`` registry under ``repro``'s series.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Optional
 
 import numpy as np
+
+from repro_torch import obs
+from repro_torch.obs import names as mnames
 
 
 class WriteLog:
@@ -106,9 +109,13 @@ class EpochHandle:
                         raise ValueError(f"unknown write kind {kind!r}")
                 except Exception as e:  # per-op isolation
                     out.append(e)
+                    obs.counter(mnames.ONLINE_WRITE_ERRORS, op=kind).inc()
+                else:
+                    obs.counter(mnames.ONLINE_WRITES, op=kind).inc()
             if idx.needs_compaction(delta_fill=self.delta_fill,
                                     tombstone_ratio=self.tombstone_ratio):
-                self._swap(idx)
+                idx = self._swap(idx)
+            self._observe_tiers(idx)
             return out
 
     def maybe_compact(self) -> bool:
@@ -122,10 +129,23 @@ class EpochHandle:
             return False
 
     def _swap(self, idx):
+        t0 = time.perf_counter()
         new = idx.compact(scope=self.scope, **self.compact_kwargs)
         self._current = new  # the RCU publish: one reference assignment
         self.swaps += 1
+        obs.counter(mnames.ONLINE_EPOCH_SWAPS).inc()
+        obs.histogram(mnames.ONLINE_COMPACTION_TIME).observe(
+            time.perf_counter() - t0)
         return new
+
+    def _observe_tiers(self, idx) -> None:
+        """Gauge the online tiers after a write run (delta fill ratio,
+        tombstoned slots): the feedback the swap policy acts on."""
+        if idx.delta is not None and idx.delta.capacity:
+            obs.gauge(mnames.ONLINE_DELTA_FILL).set(
+                idx.delta.n_active / idx.delta.capacity)
+        if idx.tombstones is not None:
+            obs.gauge(mnames.ONLINE_TOMBSTONES).set(idx.tombstones.count)
 
 
 def _rows(vectors) -> np.ndarray:

@@ -11,7 +11,12 @@ from repro_torch.query.plan import (
     record_cache_hit,
     reset_plan_stats,
 )
-from repro_torch.query.spec import EXECUTIONS, Query, validate_query_batch
+from repro_torch.query.spec import (
+    EXECUTIONS,
+    Query,
+    degraded,
+    validate_query_batch,
+)
 
 __all__ = [
     "Capabilities",
@@ -20,6 +25,7 @@ __all__ = [
     "SearchPlan",
     "capabilities",
     "compile_plan",
+    "degraded",
     "plan_stats",
     "record_cache_hit",
     "reset_plan_stats",

@@ -32,8 +32,10 @@ epoch swap is a new index object: a plan bound to the old one keeps
 serving the old epoch.
 
 ``plan_stats()`` counts, per pipeline, the plans compiled, the plan-cache
-hits, the re-plans of stale plans and the executions (``repro``'s counters,
-without its metrics registry).
+hits, the re-plans of stale plans and the executions; the same events go
+to the ``repro_torch.obs`` registry under ``repro``'s series, and an
+execution records a ``plan`` span (a ``delta_leg`` span inside it) on a
+traced request.
 """
 
 from __future__ import annotations
@@ -44,8 +46,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import nsa
 from repro_torch.core.distances import BIG
+from repro_torch.obs import names as mnames
 from repro_torch.query.spec import Query, validate_query_batch
 
 _NOT_PORTED = ("sharded",)
@@ -68,6 +72,7 @@ def reset_plan_stats() -> None:
 
 def record_cache_hit(pipeline: str) -> None:
     _STATS[pipeline]["cache_hits"] += 1
+    obs.counter(mnames.PLAN_CACHE_HITS, pipeline=pipeline).inc()
 
 _LOWERING = {
     "dense": "per level one ops.pairwise_distance [B, n_l] matrix + masked "
@@ -159,12 +164,15 @@ class SearchPlan:
             # the index changed in place under this plan: re-plan (a
             # conflict with the new capabilities raises as plan() would)
             _STATS[self.pipeline][STALENESS_REPLAN] += 1
+            obs.counter(mnames.PLAN_REPLANS, pipeline=self.pipeline).inc()
             return idx.plan(self.query)(queries)
         _STATS[self.pipeline]["executions"] += 1
+        obs.counter(mnames.PLAN_EXECUTIONS, pipeline=self.pipeline).inc()
         validate_query_batch(queries, idx.distance, expect_dim=idx._dim())
-        Q = torch.as_tensor(queries, dtype=torch.float32).to(idx.device)
-        squeeze = Q.dim() == 1
-        res = self._execute(Q[None] if squeeze else Q)
+        with obs.span("plan", pipeline=self.pipeline):
+            Q = torch.as_tensor(queries, dtype=torch.float32).to(idx.device)
+            squeeze = Q.dim() == 1
+            res = self._execute(Q[None] if squeeze else Q)
         return nsa.SearchResult(*(t[0] for t in res)) if squeeze else res
 
     def _execute(self, Q: torch.Tensor) -> nsa.SearchResult:
@@ -204,7 +212,8 @@ class SearchPlan:
                 leaf_radius_filter=q.leaf_radius_filter,
             )
         if self.caps.delta_dirty:
-            res = self._merge_delta_leg(Q, res)
+            with obs.span("delta_leg", n_active=int(idx.delta.n_active)):
+                res = self._merge_delta_leg(Q, res)
         return res
 
     def _merge_delta_leg(self, Q: torch.Tensor, res: nsa.SearchResult
@@ -242,8 +251,9 @@ class SearchPlan:
 
     def describe(self) -> dict:
         """Structured plan description: pipeline, effective pipeline,
-        lowering, the resolved query fields and the capabilities bound
-        against."""
+        lowering, the resolved query fields, the capabilities bound
+        against and the index's size and code format (what a cost record
+        joins on)."""
         q = self.query
         effective = self.effective_pipeline()
         return dict(
@@ -269,6 +279,11 @@ class SearchPlan:
                     else "none (delta buffer empty)"),
             ),
             kernel=q.kernel._asdict() if q.kernel is not None else None,
+            index=dict(
+                n_points=getattr(self.index, "n_points", None),
+                code_format=getattr(
+                    getattr(self.index, "store", None), "code_format", None),
+            ),
         )
 
     def explain(self) -> str:
@@ -297,5 +312,6 @@ def compile_plan(index, query: Query) -> SearchPlan:
     pipeline = _resolve_pipeline(query, caps)
     radius = query.radius if query.radius is not None else index.default_radius
     _STATS[pipeline]["compiles"] += 1
+    obs.counter(mnames.PLAN_COMPILES, pipeline=pipeline).inc()
     return SearchPlan(index=index, query=query, caps=caps, pipeline=pipeline,
                       radius=radius)

@@ -86,6 +86,32 @@ class Query:
             object.__setattr__(self, "rerank_width", int(self.rerank_width))
 
 
+def degraded(query: Query) -> Query:
+    """The graceful-degradation rewrite of ``query`` (DESIGN.md §3.10).
+
+    Under admission-control pressure the router serves this cheaper spec
+    instead of rejecting: beam narrowed (halved, floor 8 per level), the
+    exact rerank stage dropped (``exact_rerank=False`` — rank on quantised
+    scan distances alone where the index stores codes; indices serving the
+    exact payload just run the narrower beam), rerank width collapsed to
+    ``k``, and stats off. Same ``k`` and radius — the result contract
+    holds, only the quality/cost knobs move. Deterministic and frozen, so
+    the degraded plan compiles once and caches like any other.
+    """
+    beam = query.beam
+    if isinstance(beam, tuple):
+        beam = tuple(max(8, b // 2) for b in beam)
+    elif beam is not None:
+        beam = max(8, int(beam) // 2)
+    return dataclasses.replace(
+        query,
+        beam=beam,
+        rerank_width=query.k,
+        exact_rerank=False,
+        with_stats=False,
+    )
+
+
 def validate_query_batch(Q, dist: dist_lib.Distance, *,
                          expect_dim: Optional[int] = None) -> None:
     """Search-time query validation: ``needs_dim`` distances reject wrong

@@ -14,8 +14,8 @@
   submitter. Prefetch is advisory: worker errors leave the granule cold,
   and the synchronous fetch is the correctness path.
 
-Both keep a plain ``stats`` dict. ``repro``'s metric registry counters
-come with the port's observability layer.
+Both keep a plain ``stats`` dict and publish ``repro``'s series to the
+``repro_torch.obs`` registry (the cache's labelled by ``tier=``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,9 @@ from __future__ import annotations
 import collections
 import threading
 from typing import Callable, Optional, Sequence
+
+from repro_torch import obs
+from repro_torch.obs import names as mnames
 
 
 class GranuleCache:
@@ -32,10 +35,11 @@ class GranuleCache:
     claims the key, runs ``fetch(key)`` *outside* the lock, inserts the
     result and wakes any waiters. Values are treated as immutable.
     ``prefetch=True`` marks the insert as warm-up, so that a later real hit
-    counts as "prefetch useful"."""
+    counts as "prefetch useful". ``tier`` labels the cache's series."""
 
-    def __init__(self, capacity: int):
+    def __init__(self, capacity: int, *, tier: str = "host"):
         self.capacity = max(1, int(capacity))
+        self.tier = tier
         self._lock = threading.Lock()
         self._entries: collections.OrderedDict = collections.OrderedDict()
         self._inflight: dict = {}  # key -> threading.Event
@@ -43,6 +47,14 @@ class GranuleCache:
         self._resident_bytes = 0
         self.stats = dict(hits=0, misses=0, evictions=0, inflight_waits=0,
                           prefetch_useful=0)
+        self._m_hits = obs.counter(mnames.STORE_CACHE_HITS, tier=tier)
+        self._m_misses = obs.counter(mnames.STORE_CACHE_MISSES, tier=tier)
+        self._m_evictions = obs.counter(mnames.STORE_CACHE_EVICTIONS,
+                                        tier=tier)
+        self._m_resident = obs.gauge(mnames.STORE_CACHE_RESIDENT, tier=tier)
+        self._m_hit_ratio = obs.gauge(mnames.STORE_CACHE_HIT_RATIO, tier=tier)
+        self._m_dedup = obs.counter(mnames.STORE_CACHE_INFLIGHT_DEDUP,
+                                    tier=tier)
 
     # -- internals (call with self._lock held) --------------------------------
 
@@ -53,6 +65,13 @@ class GranuleCache:
             # first real hit on a warm-up insert: the prefetch saved one read
             self._prefetched.discard(key)
             self.stats["prefetch_useful"] += 1
+        self._m_hits.inc()
+        self._update_ratio()
+
+    def _update_ratio(self) -> None:
+        total = self.stats["hits"] + self.stats["misses"]
+        if total:
+            self._m_hit_ratio.set(self.stats["hits"] / total)
 
     def _insert(self, key, value, *, prefetch: bool) -> None:
         old = self._entries.pop(key, None)
@@ -70,6 +89,8 @@ class GranuleCache:
             self._resident_bytes -= int(getattr(v, "nbytes", 0))
             self._prefetched.discard(k)
             self.stats["evictions"] += 1
+            self._m_evictions.inc()
+        self._m_resident.set(self._resident_bytes)
 
     # -- public ---------------------------------------------------------------
 
@@ -87,6 +108,7 @@ class GranuleCache:
                     ev = self._inflight[key] = threading.Event()
                 else:
                     self.stats["inflight_waits"] += 1
+                    self._m_dedup.inc()
             if not owner:
                 ev.wait()
                 # the owner inserted the value, or its fetch raised and the
@@ -107,8 +129,10 @@ class GranuleCache:
                 raise
             with self._lock:
                 self.stats["misses"] += 1
+                self._m_misses.inc()
                 self._insert(key, value, prefetch=prefetch)
                 self._inflight.pop(key, None)
+                self._update_ratio()
             ev.set()
             return value
 
@@ -169,6 +193,9 @@ class PrefetchPool:
         self._have_work = threading.Condition(self._lock)
         self._closed = False
         self.stats = dict(submitted=0, accepted=0, dropped=0, errors=0)
+        self._m_queue = obs.gauge(mnames.STORE_PREFETCH_QUEUE)
+        self._m_drops = obs.counter(mnames.STORE_PREFETCH_DROPS)
+        self._m_prefetched = obs.counter(mnames.STORE_PREFETCHED)
         self._workers = [
             threading.Thread(target=self._run, daemon=True,
                              name=f"granule-prefetch-{i}")
@@ -188,6 +215,7 @@ class PrefetchPool:
                     continue
                 if len(self._q) + len(accepted) >= self.depth:
                     self.stats["dropped"] += 1
+                    self._m_drops.inc()
                     continue
                 accepted.append(key)
             if not accepted:
@@ -197,6 +225,7 @@ class PrefetchPool:
                 self._queued.add(key)
                 self._q.append((key, handle))
             self.stats["accepted"] += len(accepted)
+            self._m_queue.set(len(self._q))
             self._have_work.notify(len(accepted))
         return handle
 
@@ -208,8 +237,10 @@ class PrefetchPool:
                 if self._closed and not self._q:
                     return
                 key, handle = self._q.popleft()
+                self._m_queue.set(len(self._q))
             try:
                 self.cache.get(key, self.fetch, prefetch=True)
+                self._m_prefetched.inc()
             except Exception:  # noqa: BLE001 — advisory path, never wedge
                 with self._lock:
                     self.stats["errors"] += 1
@@ -226,6 +257,7 @@ class PrefetchPool:
                 handle._one_done()
             self._q.clear()
             self._queued.clear()
+            self._m_queue.set(0)
             self._have_work.notify_all()
         for w in self._workers:
             w.join(timeout=5)

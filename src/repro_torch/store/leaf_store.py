@@ -29,6 +29,10 @@ in another order, and agree to rounding.
 re-quantises only the blocks that overlap changed rows (unchanged blocks
 keep their codes and scales bit for bit) and backs the new exact payload
 with a fresh file, never the old epoch's.
+
+The exact source counts its granule fetches, hits, bytes and prefetches
+in the ``repro_torch.obs`` registry under ``repro``'s series, and
+``fetch_rows`` records a host ``granule_fetch`` span on a traced request.
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch._device import resolve_device
 from repro_torch.kernels import ref as kref
+from repro_torch.obs import names as mnames
 from repro_torch.store.cache import GranuleCache, PrefetchHandle, PrefetchPool
 
 Tensor = torch.Tensor
@@ -127,9 +133,15 @@ class ExactSource:
         self._arr = arr  # np.ndarray or np.memmap, [n, d] f32
         self.block = block
         self.n, self.d = arr.shape
-        self.cache = GranuleCache(cache_granules)
+        self.cache = GranuleCache(cache_granules, tier="host")
         self._pool: Optional[PrefetchPool] = None
         self._pool_lock = threading.Lock()
+        self._m_fetches = obs.counter(mnames.STORE_FETCHES)
+        self._m_hits = obs.counter(mnames.STORE_HITS)
+        self._m_fetch_bytes = obs.counter(mnames.STORE_FETCH_BYTES)
+        self._m_prefetched = obs.counter(mnames.STORE_PREFETCHED)
+        self._m_prefetch_useful = obs.counter(mnames.STORE_PREFETCH_USEFUL)
+        self._m_cached = obs.gauge(mnames.STORE_CACHE_GRANULES)
 
     @property
     def on_disk(self) -> bool:
@@ -166,7 +178,20 @@ class ExactSource:
         return np.asarray(self._arr[lo: lo + self.block], np.float32)
 
     def _granule(self, g: int, *, prefetch: bool = False) -> np.ndarray:
-        return self.cache.get(g, self._read_granule, prefetch=prefetch)
+        before_m = self.cache.stats["misses"]
+        before_u = self.cache.stats["prefetch_useful"]
+        blk = self.cache.get(g, self._read_granule, prefetch=prefetch)
+        if self.cache.stats["misses"] != before_m:
+            self._m_fetches.inc()
+            self._m_fetch_bytes.inc(blk.nbytes)
+            if prefetch:
+                self._m_prefetched.inc()
+        else:
+            self._m_hits.inc()
+            if self.cache.stats["prefetch_useful"] != before_u:
+                self._m_prefetch_useful.inc()
+        self._m_cached.set(len(self.cache))
+        return blk
 
     def read_all(self) -> np.ndarray:
         """A copy of the whole exact payload (save and ∞ paths; bypasses
@@ -207,9 +232,12 @@ class ExactSource:
         order = np.argsort(gran, kind="stable")
         uniq, starts = np.unique(gran[order], return_index=True)
         ends = np.append(starts[1:], order.shape[0])
-        for g, lo, hi in zip(uniq.tolist(), starts.tolist(), ends.tolist()):
-            sel = order[lo:hi]
-            out[sel] = self._granule(g)[flat[sel] - g * self.block]
+        with obs.span("granule_fetch", kind="host",
+                      granules=int(uniq.size), rows=int(flat.shape[0])):
+            for g, lo, hi in zip(uniq.tolist(), starts.tolist(),
+                                 ends.tolist()):
+                sel = order[lo:hi]
+                out[sel] = self._granule(g)[flat[sel] - g * self.block]
         return out.reshape(*idx.shape, self.d)
 
 

@@ -22,6 +22,14 @@ runs on it, so dists, ids and candidate counts are bit-identical to the
 ``beam`` pipeline's. While stage 1 runs, the candidates' granules are
 prefetched into the exact source's cache on its prefetch pool (memmapped
 sources only; a host array's fetch is a plain slice).
+
+Tracing: on a traced request the stages record ``descend``, ``scan`` and
+``rerank`` spans (the ``granule_fetch`` span is the exact source's). Only
+then does each device stage wait for its work (an event recorded on the
+current stream), so its span holds its device time; untraced, nothing
+waits until the host needs the survivors. Every serving thread shares the
+default stream, so a traced device span can also hold work that another
+engine queued before it.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import distances as dist_lib
 from repro_torch.core.distances import BIG
 from repro_torch.core.msa import PDASCIndexData
@@ -46,6 +55,15 @@ from repro_torch.kernels import ops as kops
 from repro_torch.store.leaf_store import LeafStore
 
 PREFETCH_WAIT_S = 30.0  # prefetch is advisory: never wait longer for it
+
+
+def _settle(t: torch.Tensor) -> None:
+    """Wait for the work queued so far on the current stream (a traced
+    stage's device time; no device-wide synchronise)."""
+    if t.is_cuda:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        ev.synchronize()
 
 
 def search_two_stage(
@@ -110,9 +128,13 @@ def search_two_stage(
             slot_valid=slot_valid,
         )
 
-    cand_idx, cand_ok = descend_beam(index, Qb, dist=dist, r=r, beam=beam,
-                                     max_children=tuple(max_children),
-                                     kernel=kernel)
+    tracing = obs.is_tracing()
+    with obs.span("descend", kind="device", beam=beam):
+        cand_idx, cand_ok = descend_beam(index, Qb, dist=dist, r=r, beam=beam,
+                                         max_children=tuple(max_children),
+                                         kernel=kernel)
+        if tracing:
+            _settle(cand_idx)
     W = cand_idx.shape[1]
     # a small rerank_width bounds fetch traffic, never the result count
     R = min(max(int(rerank_width), k), W)
@@ -126,7 +148,11 @@ def search_two_stage(
 
     if not exact_rerank:
         # scan-only: the scan's top-k is the result; no fetch, no stage 2
-        d_scan, slot = scan(min(k, W))
+        with obs.span("scan", kind="device", candidates=W,
+                      backend=store.backend, scan_only=True):
+            d_scan, slot = scan(min(k, W))
+            if tracing:
+                _settle(d_scan)
         slots = torch.gather(cand_idx, 1, slot.long())
         res = assemble_result(index, d_scan, slots, cand_ok, k=k,
                               leaf_radius=radii[0],
@@ -137,16 +163,25 @@ def search_two_stage(
     if prefetch and store.exact.wants_prefetch:
         # warm the granule cache on the pool while the scan runs
         prefetcher = store.prefetch_rows_async(cand_idx.cpu().numpy())
-    d_scan, slot = scan(R)
-    surv_idx = torch.gather(cand_idx, 1, slot.long())  # [B, R]
-    surv_ok = d_scan < BIG / 2
+    with obs.span("scan", kind="device", candidates=W, survivors=R,
+                  backend=store.backend):
+        d_scan, slot = scan(R)
+        surv_idx = torch.gather(cand_idx, 1, slot.long())  # [B, R]
+        surv_ok = d_scan < BIG / 2
+        if tracing:
+            _settle(surv_idx)
     if prefetcher is not None:
         prefetcher.wait(timeout=PREFETCH_WAIT_S)
 
     # stage 2: exact fp32 rows from the out-of-core payload, granule-wise
-    C = torch.from_numpy(store.fetch_rows(surv_idx.cpu().numpy())).to(
-        Qb.device)
-    dists, slot2 = kops.rank_candidates(Qb, C, surv_ok, dist, k=min(k, R))
+    # (the granule_fetch span is recorded inside ExactSource.fetch_rows)
+    C = store.fetch_rows(surv_idx.cpu().numpy())
+    with obs.span("rerank", kind="device", survivors=R):
+        dists, slot2 = kops.rank_candidates(
+            Qb, torch.from_numpy(C).to(Qb.device), surv_ok, dist,
+            k=min(k, R))
+        if tracing:
+            _settle(dists)
     slots = torch.gather(surv_idx, 1, slot2.long())
     res = assemble_result(index, dists, slots, cand_ok, k=k,
                           leaf_radius=radii[0],
