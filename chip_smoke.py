@@ -147,6 +147,39 @@ result line):
    wedge:r1@20+8:0.4 --churn 12``), both with tracing, shadow recall and
    a metrics dump: exit 0, a recall line, ``errors=0`` on the replicated
    path.
+8. (g) The distributed deployment: ``dense_embed`` n = 1,024,000 (+ the
+   1,000 held-out queries, seed 0) written to ``.npy`` under ``build/``;
+   4 rank processes on the one card (``launch.ranks.run_ranks``: ``gloo``
+   through ``file://``, started after the kernels are built), mesh
+   ``(4,)`` ``("data",)``; each rank reads its 256,000 rows, runs
+   ``build_sharded`` (gl 256, euclidean, pam, group_chunk 1024) and the
+   dense and beam-32 ``compile_sharded_plan`` plans twice (radius: a
+   single build's on all rows); the butterfly and all-gather merges
+   (bit-equal, and equal over both axes of a ``(2, 2)`` ``("data",
+   "model")`` mesh on the same ranks); ``exact_knn_sharded``, held to one
+   process's ``exact_knn`` on the full table as sets up to near-ties, and
+   the recall of both plans against it; 1,280 deletes through
+   ``route_writes`` + ``local_slot_valid`` (no deleted id returned); the
+   sharded int8 payload scan (block 256) held to one process's
+   ``ops.scan_quantized`` over a single index's replicated descent. Every
+   rank's results are bit-identical; each rank zeroes its launch counts
+   around each window (``dist-*`` in ``WINDOW_KERNELS``) and every window
+   must launch its kernels in every rank; each rank's device busy share
+   of one beam call (``torch.profiler``).
+9. (h) The remote payload tier: ``bench_store.py --scenario remote``'s
+   knobs at full width: the main path's 1,000,000 rows streamed in shards
+   of 65,536 (the last 16,960) by ``PDASCIndex.build_streaming`` (gl 256,
+   int8 block 256, kmeans, radius quantile 0.35) into a
+   ``SimulatedObjectStore`` (0.2 ms a op, parallelism 8), served
+   two-stage (beam 32, rerank 128, cache 64 granules) on the main path's
+   1,000 queries; bench_store's bars: the remote tier holds the whole
+   exact payload (every leaf slot), codes + scales + host cache <= 0.40 x
+   the dense payload, recall within 0.02 of the same index served from
+   memory; a v5 save through a ``LocalFSStore`` under ``build/`` and a
+   load answer bit-equal; one error window of a fault plan surfaces as
+   ``RemoteStoreError`` naming the injected fault, and then passes.
+10. (i) The serve CLI with ``--mode two_stage --store remote`` at n =
+   200,000 (256 queries) on both paths: exit 0, ``errors=0`` replicated.
 
 Tolerance rule (as in tests/test_torch_*.py): fp32 results agree within
 rtol = 1e-5 and atol = 1e-5 * max(1, max|ref|); l2 distances are compared
@@ -171,6 +204,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -252,6 +286,15 @@ WINDOW_KERNELS = {
     "serve-replicated-swap": ("swap_deltas", "rank"),  # 4 compactions
     "serve-replicated-wedge": ("rank",),  # the wedged tier
     "serve-two-stage": ("scan", "rank"),  # the engine's two-stage batches
+    # (g): every rank's own windows
+    "dist-build": ("pairwise", "swap_deltas"),  # build_sharded
+    "dist-search": ("pairwise", "rank"),  # the dense and beam plans
+    "dist-truth": ("knn",),  # exact_knn_sharded
+    "dist-deleted": ("rank",),  # the beam plan under slot_valid
+    "dist-scan": ("scan",),  # scan_quantized_sharded
+    # (h)
+    "remote-build": ("pairwise",),  # build_streaming's k-means relabels
+    "remote-search": ("scan", "rank"),  # two-stage over the remote tier
 }
 SYMBOLS = {  # each kernel's __global__ functions
     "pairwise": ("pairwise_kernel",), "rank": ("rank_kernel",),
@@ -286,6 +329,11 @@ SWAP_UPSERT_BATCH = 128  # rows per upsert through the replica set
 # the serving phases' compactions take the build's slab size, as the online
 # phase's do (the default slab, 8 groups, makes over a hundred at 1M)
 COMPACT_KW = dict(group_chunk=GROUP_CHUNK)
+N_DIST = 1_024_000  # (g): 4 ranks x 256,000 rows = 1,000 whole groups each
+DIST_RANKS = 4
+DIST_DELETES = 1280
+REMOTE = dict(shard_rows=65_536, latency_ms=0.2,
+              cache_granules=64)  # (h): bench_store.py --scenario remote
 
 
 class CheckFailed(RuntimeError):
@@ -2250,6 +2298,18 @@ def check_span_tree(trace) -> dict:
     total = 0.0
     overrun = 0
 
+    def spans(span):
+        yield span
+        for c in span.children:
+            yield from spans(c)
+
+    # a losing leg's batch may still be running when the router returns:
+    # wait (bounded) for every span to end before checking the tree
+    deadline = time.monotonic() + 30.0
+    while (any(sp.t1 is None for sp in spans(trace.root))
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+
     def visit(span, lost: bool) -> None:
         nonlocal total, overrun
         names.add(span.name)
@@ -2715,18 +2775,30 @@ def phase_serve_two_stage(main: dict, workdir: str) -> dict:
                 on_off=on / off, counts=counts)
 
 
-def phase_serve_cli() -> dict:
-    """(f) ``python -m repro_torch.launch.serve`` on both paths, as
-    subprocesses on the card."""
+SERVE_CLI = ["--n", "200000", "--gl", "256", "--queries", "512", "--batch",
+             "32", "--trace-sample", "8", "--shadow-sample", "16"]
+SERVE_CLI_PATHS = {  # (f): the beam index, with churn
+    "single": ["--mode", "beam", "--churn", "64"],
+    "replicated": ["--mode", "beam", "--replicas", "3", "--faults",
+                   "wedge:r1@20+8:0.4", "--churn", "12"]}
+REMOTE_CLI = ["--mode", "two_stage", "--store", "remote", "--store-block",
+              str(STORE_BLOCK), "--remote-latency-ms",
+              str(REMOTE["latency_ms"]), "--remote-cache-granules",
+              str(REMOTE["cache_granules"])]
+SERVE_CLI_REMOTE_PATHS = {  # (i): --store remote, half (f)'s queries
+    "remote-single": REMOTE_CLI + ["--queries", "256"],
+    "remote-replicated": REMOTE_CLI + ["--queries", "256", "--replicas", "3",
+                                       "--faults", "wedge:r1@20+8:0.4"]}
+
+
+def phase_serve_cli(paths: dict, tag: str = "serve-cli") -> dict:
+    """``python -m repro_torch.launch.serve`` on each of ``paths``, as
+    subprocesses on the card: (f) the beam index on both paths, (i) the
+    remote payload tier on both."""
     out = {}
-    base = ["--n", "200000", "--gl", "256", "--queries", "512", "--batch",
-            "32", "--mode", "beam", "--trace-sample", "8", "--shadow-sample",
-            "16"]
+    base = SERVE_CLI
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
-        for name, extra in (
-                ("single", ["--churn", "64"]),
-                ("replicated", ["--replicas", "3", "--faults",
-                                "wedge:r1@20+8:0.4", "--churn", "12"])):
+        for name, extra in paths.items():
             cmd = [sys.executable, "-m", "repro_torch.launch.serve", *base,
                    *extra, "--metrics-dump", os.path.join(work, f"{name}.json")]
             t0 = time.perf_counter()
@@ -2740,14 +2812,17 @@ def phase_serve_cli() -> dict:
                     f"{run.returncode}: {run.stderr[-3000:]}")
             require(any("recall" in ln for ln in lines),
                     f"serve CLI ({name}) printed no recall line")
-            if name == "replicated":
+            if "remote" in name:
+                require("remote exact tier" in run.stdout,
+                        f"serve CLI ({name}) served no remote tier")
+            if name.endswith("replicated"):
                 require(any("errors=0" in ln for ln in lines),
                         f"serve CLI (replicated): {lines}")
             require(os.path.getsize(os.path.join(work, f"{name}.json")) > 0,
                     f"serve CLI ({name}) dumped no metrics")
             for ln in lines:
-                log(f"[serve-cli] {name}: {ln}")
-            log(f"[serve-cli] {name}: exit 0 in {secs:.1f} s")
+                log(f"[{tag}] {name}: {ln}")
+            log(f"[{tag}] {name}: exit 0 in {secs:.1f} s")
             out[name] = dict(secs=secs, lines=lines)
     return out
 
@@ -2804,6 +2879,426 @@ def phase_quickstart() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (g) the distributed deployment: 4 rank processes on the one card
+# ---------------------------------------------------------------------------
+
+
+def rank_distributed(rank: int, world: int, *, work: str, radius: float,
+                     dead: np.ndarray) -> dict:
+    """One rank of phase (g), run by ``launch.ranks.run_ranks`` in its own
+    process (a ``gloo`` group; the rank's index and kernels on the card).
+    Each window zeroes the rank's launch counts just before its work and
+    reads them just after; the results come back as numpy."""
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core import distances as dist_lib
+    from repro_torch.core import distributed as dd
+    from repro_torch.core import nsa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.query import Query, compile_sharded_plan
+    from repro_torch.store import LeafStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    data = np.load(os.path.join(work, "dist_data.npy"), mmap_mode="r")
+    Qc = torch.from_numpy(np.load(os.path.join(work, "dist_q.npy"))).cuda()
+    mesh = make_mesh((world,), ("data",))
+    shard = dd.shard_index(mesh, ("data",))
+    per = data.shape[0] // world
+    out = dict(shard=shard, launches={}, secs={}, merge_ms={}, res={})
+
+    def window(name, fn):
+        torch.cuda.synchronize()
+        tdist.barrier()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out["secs"][name] = time.perf_counter() - t0
+        out["launches"][name] = ops.launch_counts()
+        return got
+
+    def keep(name, pair):
+        out["res"][name] = tuple(t.cpu().numpy() for t in pair)
+
+    local = window("dist-build", lambda: dd.build_sharded(
+        data, mesh, gl=256, distance="euclidean", method="pam",
+        group_chunk=GROUP_CHUNK, device="cuda"))
+    mc = dd.max_children_sharded(local, mesh)
+    out["max_children"] = mc
+    plans = {mode: compile_sharded_plan(
+        mesh, Query(k=10, radius=radius, execution=mode, beam=32),
+        dist="euclidean", max_children=mc if mode == "beam" else None)
+        for mode in ("dense", "beam")}
+
+    def search():
+        for mode, plan in plans.items():
+            plan(local, Qc)  # the first call
+            torch.cuda.synchronize()
+            tdist.barrier()
+            t0 = time.perf_counter()
+            res = plan(local, Qc)
+            torch.cuda.synchronize()
+            out["secs"][f"plan-{mode}-2nd"] = time.perf_counter() - t0
+            keep(mode, (res.dists, res.ids))
+            out["res"][f"{mode}_ncand"] = (res.n_candidates.cpu().numpy(),)
+
+    window("dist-search", search)
+
+    # the merges alone, on this rank's unmerged beam result
+    loc = nsa.search_beam(local, Qc, dist=dist_lib.get("euclidean"), k=10,
+                          r=radius,
+                          beam=32, max_children=mc)
+    gids = torch.where(loc.ids >= 0, loc.ids + shard * per, -1).to(
+        torch.int32)
+    grid = DeviceMesh("cpu", torch.arange(world).reshape(2, world // 2),
+                      mesh_dim_names=("data", "model"))
+    for method in ("butterfly", "allgather"):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            tdist.barrier()
+            t0 = time.perf_counter()
+            merged = dd.topk_merge(loc.dists, gids, mesh, ("data",), 10,
+                                   method=method)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["merge_ms"][method] = float(np.median(times)) * 1e3
+        keep(f"merge_{method}", merged)
+        keep(f"merge2_{method}", dd.topk_merge(
+            loc.dists, gids, grid, ("data", "model"), 10, method=method))
+
+    truth = window("dist-truth", lambda: dd.exact_knn_sharded(
+        data, Qc, mesh, distance="l2", k=10))
+    keep("truth", truth)
+    torch.cuda.synchronize()
+    tdist.barrier()
+    t0 = time.perf_counter()
+    dd.exact_knn_sharded(data, Qc, mesh, distance="l2", k=10)
+    torch.cuda.synchronize()
+    out["secs"]["truth-2nd"] = time.perf_counter() - t0
+    prof = profile_breakdown(f"rank {rank} sharded beam plan",
+                             lambda: plans["beam"](local, Qc))
+    out["busy"] = (prof["busy_ms"], prof["wall_ms"])
+
+    routed = dict(dd.route_writes(dead, world, per))
+    sv = torch.from_numpy(dd.local_slot_valid(
+        local.leaf_ids.cpu().numpy(), routed.get(shard, []))).cuda()
+    res = window("dist-deleted", lambda: plans["beam"](local, Qc,
+                                                       slot_valid=sv))
+    keep("deleted", (res.dists, res.ids))
+
+    codes = np.load(os.path.join(work, "dist_codes.npy"), mmap_mode="c")
+    store = LeafStore(backend="int8", block=STORE_BLOCK,
+                      codes=torch.from_numpy(codes),
+                      scales=torch.from_numpy(np.load(
+                          os.path.join(work, "dist_scales.npy"))),
+                      exact=None)
+    codes_l, scales_l = (t.cuda() for t in dd.shard_payload(store, mesh))
+    ci = torch.from_numpy(np.load(os.path.join(work, "dist_ci.npy"))).cuda()
+    ok = torch.from_numpy(np.load(os.path.join(work, "dist_ok.npy"))).cuda()
+    keep("scan", window("dist-scan", lambda: dd.scan_quantized_sharded(
+        codes_l, scales_l, Qc, ci, ok, mesh, k=10, block=STORE_BLOCK)))
+    return out
+
+
+def phase_distributed(work: str) -> dict:
+    """(g) The sharded deployment: ``DIST_RANKS`` rank processes on the one
+    card build, search, merge and scan; held to single-process runs of the
+    same functions on the same 1,024,000 rows."""
+    import torch
+    from repro_torch.baselines import exact_knn
+    from repro_torch.core import nsa
+    from repro_torch.core.index import PDASCIndex
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.ranks import run_ranks
+
+    t0 = time.perf_counter()
+    full = make_dataset("dense_embed", n=N_DIST + N_QUERIES, seed=0)
+    data, test = full[:N_DIST], full[N_DIST:]
+    np.save(os.path.join(work, "dist_data.npy"), data)
+    np.save(os.path.join(work, "dist_q.npy"), test)
+    log(f"[dist] data made and written in {time.perf_counter() - t0:.1f} s "
+        f"(set-up)")
+    Qc = _cuda(test)
+    # one index over all rows: the replicated descent of the payload scan,
+    # and the radius the shards search with (the build's rule)
+    idx = PDASCIndex.build(data, gl=256, distance="euclidean",
+                           radius_quantile=0.35, group_chunk=GROUP_CHUNK,
+                           store="int8", store_block=STORE_BLOCK,
+                           device="cuda")
+    ci, ok = nsa.descend_beam(idx.data, Qc, dist=idx.distance,
+                              r=idx.default_radius, beam=32,
+                              max_children=idx.max_children)
+    d1, s1 = ops.scan_quantized(Qc, idx.store.codes, idx.store.scales, ci, ok,
+                                "euclidean", k=10, block=STORE_BLOCK)
+    g1 = torch.where(d1 < BIG / 2, torch.gather(ci, 1, s1.long()), -1)
+    for name, arr in (("codes", idx.store.codes), ("scales", idx.store.scales),
+                      ("ci", ci), ("ok", ok)):
+        np.save(os.path.join(work, f"dist_{name}.npy"), arr.cpu().numpy())
+    radius = float(idx.default_radius)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gd, gt = exact_knn(Qc, data, k=10, device="cuda")
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    exact_knn(Qc, data, k=10, device="cuda")
+    torch.cuda.synchronize()
+    single_ms2 = (time.perf_counter() - t0) * 1e3
+    gd, gt = gd.cpu().numpy(), gt.cpu().numpy()
+    data_c = _cuda(data)  # the table resident: the knn launch and the copies
+    exact_knn(Qc, data_c, k=10, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact_knn(Qc, data_c, k=10, device="cuda")
+    torch.cuda.synchronize()
+    resident_ms = (time.perf_counter() - t0) * 1e3
+    del data_c
+    dead = np.random.default_rng(7).choice(N_DIST, DIST_DELETES,
+                                           replace=False)
+    del idx
+
+    t0 = time.perf_counter()
+    outs = run_ranks(f"{os.path.abspath(__file__)}:rank_distributed",
+                     DIST_RANKS, workdir=work,
+                     kwargs=dict(work=work, radius=radius, dead=dead),
+                     timeout=900)
+    wall = time.perf_counter() - t0
+    # every window launched its kernels in every rank
+    for name, kernels in WINDOW_KERNELS.items():
+        if not name.startswith("dist-"):
+            continue
+        total = {k: sum(o["launches"][name][k] for o in outs)
+                 for k in KERNELS}
+        PHASE_LAUNCHES[name] = total
+        for o in outs:
+            for k in kernels:
+                require(o["launches"][name][k] > 0,
+                        f"rank {o['shard']}: kernel {k} never launched in "
+                        f"{name}")
+        log(f"[{name}] kernel launches per rank: "
+            f"{[o['launches'][name] for o in outs]}")
+    # every rank's every result is bit-identical
+    for o in outs[1:]:
+        for key, arrs in outs[0]["res"].items():
+            for a, b in zip(arrs, o["res"][key]):
+                require(np.array_equal(a, b),
+                        f"ranks 0 and {o['shard']} differ on {key}")
+    res = outs[0]["res"]
+    for method in ("butterfly", "allgather"):
+        for key in (f"merge_{method}", f"merge2_{method}"):
+            for a, b in zip(res[key], res["merge_butterfly"]):
+                require(np.array_equal(a, b), f"{key} != the butterfly")
+    for a, b in zip(res["merge_butterfly"], res["beam"]):
+        require(np.array_equal(a, b), "merged beam != the sharded beam plan")
+    # the sharded exact k-NN against one process's exact_knn, as sets
+    td, ti = res["truth"]
+    check_exact_sets(types.SimpleNamespace(ids=torch.from_numpy(ti),
+                                           dists=torch.from_numpy(td)), gd, gt)
+    values_agree(td, gd, squared=True)
+    recalls = {m: recall(res[m][1], ti) for m in ("dense", "beam")}
+    dead_hit = set(dead.tolist()) & set(res["deleted"][1].ravel().tolist())
+    require(not dead_hit, f"deleted ids returned: {sorted(dead_hit)[:10]}")
+    sd, si = res["scan"]
+    err_scan = topk_agree(sd, si, d1.cpu().numpy(), g1.cpu().numpy(), sd)
+    build = [o["secs"]["dist-build"] for o in outs]
+    secs = outs[0]["secs"]
+    busy = [o["busy"] for o in outs]
+    log(f"[dist] {DIST_RANKS} rank processes on one card (gloo, mesh "
+        f"({DIST_RANKS},) 'data'), dense_embed n={N_DIST} ({N_DIST // DIST_RANKS}"
+        f" rows a rank), {len(test)} queries; ranks started and ran in "
+        f"{wall:.1f} s; every rank's results bit-identical")
+    log(f"[dist] build_sharded gl=256 euclidean pam group_chunk="
+        f"{GROUP_CHUNK}: max {max(build):.3f} s, per rank "
+        f"{[round(b, 3) for b in build]}; max_children "
+        f"{outs[0]['max_children']}")
+    ncand = {m: float(res[f"{m}_ncand"][0].mean()) for m in ("dense", "beam")}
+    log(f"[dist] sharded plans, second call: dense "
+        f"{secs['plan-dense-2nd'] * 1e3:.3f} ms, beam 32 "
+        f"{secs['plan-beam-2nd'] * 1e3:.3f} ms; recall@10 vs the sharded "
+        f"exact k-NN: dense {recalls['dense']:.4f}, beam {recalls['beam']:.4f}"
+        f"; mean candidates (summed over ranks): dense {ncand['dense']:.0f}, "
+        f"beam {ncand['beam']:.0f}")
+    log(f"[dist] merge of [{len(test)}, 10] over 4 ranks (median of 5): "
+        f"butterfly {outs[0]['merge_ms']['butterfly']:.3f} ms, allgather "
+        f"{outs[0]['merge_ms']['allgather']:.3f} ms; bit-equal, and equal "
+        f"on a (2, 2) ('data', 'model') mesh over both axes")
+    log(f"[dist] exact_knn_sharded {secs['dist-truth'] * 1e3:.3f} / "
+        f"{secs['truth-2nd'] * 1e3:.3f} ms (rank 0, first / second call, "
+        f"each rank reading and uploading its rows) vs one process's "
+        f"exact_knn {single_ms:.3f} / {single_ms2:.3f} ms (uploading the "
+        f"table) and {resident_ms:.3f} ms (the table resident); ids equal "
+        f"as sets up to near-ties")
+    log(f"[dist] device busy share of one sharded beam call per rank "
+        f"(busy ms / wall ms): " + ", ".join(
+            f"r{i} {b:.3f}/{w:.3f} ({100 * b / w:.1f}%)" if b is not None
+            else f"r{i} not measured" for i, (b, w) in enumerate(busy)))
+    log(f"[dist] {DIST_DELETES} deletes routed by id: no deleted id "
+        f"returned; sharded int8 scan (block {STORE_BLOCK}) == one "
+        f"process's scan_quantized (max err {err_scan:.3g})")
+    return dict(build=build, secs=secs, recalls=recalls, busy=busy,
+                merge_ms=outs[0]["merge_ms"], single_ms=single_ms2)
+
+
+# ---------------------------------------------------------------------------
+# (h) the remote payload tier: streaming build, remote two-stage, v5
+# ---------------------------------------------------------------------------
+
+
+def phase_remote(main: dict, data: np.ndarray, work: str) -> dict:
+    """(h) ``bench_store.py --scenario remote`` at full width: the 1M rows
+    streamed in shards into a simulated object store, served two-stage
+    from it, held to the same index served from memory, saved as v5 to a
+    ``LocalFSStore`` and loaded back, and one error window of a fault
+    plan."""
+    import torch
+    from repro_torch.core.index import PDASCIndex
+    from repro_torch.query import Query
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.store import (ExactSource, LocalFSStore, RemoteSource,
+                                   RemoteStoreError, SimulatedObjectStore,
+                                   upload_payload)
+    from repro_torch.store.two_stage import search_two_stage
+
+    n, d = data.shape
+    Qc, gt = main["Qc"], main["gt"]
+    obj = SimulatedObjectStore(latency_ms=REMOTE["latency_ms"],
+                               parallelism=8)
+
+    def shards():
+        for lo in range(0, n, REMOTE["shard_rows"]):
+            yield data[lo:lo + REMOTE["shard_rows"]]
+
+    start_phase()
+    t0 = time.perf_counter()
+    idx = PDASCIndex.build_streaming(
+        shards(), gl=256, remote=obj, distance="euclidean", store="int8",
+        block=STORE_BLOCK, method="kmeans", radius_quantile=0.35,
+        cache_granules=REMOTE["cache_granules"], group_chunk=GROUP_CHUNK,
+        device="cuda")
+    build_s = sync_s(t0)
+    launched("remote-build")
+    src = idx.store.exact
+    n_slots = src.n
+    query = Query(k=10, execution="two_stage", beam=32,
+                  rerank_width=RERANK_WIDTH)
+    plan = idx.plan(query)
+    require(plan.caps.remote and plan.pipeline == "two_stage",
+            f"the streamed index planned {plan.pipeline}, caps {plan.caps}")
+    start_phase()
+    t0 = time.perf_counter()
+    res = plan(Qc)
+    first_s = sync_s(t0)
+    launched("remote-search")
+    t0 = time.perf_counter()
+    res2 = plan(Qc)
+    second_s = sync_s(t0)
+    require(np.array_equal(res.ids.cpu().numpy(), res2.ids.cpu().numpy()),
+            "the remote two-stage search is not repeatable")
+    rec = recall(res.ids.cpu().numpy(), gt)
+    mem = idx.memory_bytes()
+    dense_payload = n * d * 4
+    resident = mem["payload"] + mem["host_cache"]
+    require(mem["remote_bytes"] == n_slots * d * 4,
+            f"remote tier holds {mem['remote_bytes']} bytes, not the whole "
+            f"exact payload ({n_slots} slots x {d} x 4)")
+    require(resident <= 0.40 * dense_payload,
+            f"resident payload {resident} above 0.40 x {dense_payload}")
+    st, pf, ops_ = dict(src.stats), dict(src.pool.stats), dict(obj.op_counts)
+    hit = st["hits"] / max(st["hits"] + st["fetches"], 1)
+
+    # the same index served with its exact tier in memory
+    idx.store.exact = ExactSource(src.read_all(), STORE_BLOCK)
+    idx._plan_cache = None
+    mplan = idx.plan(query)
+    mplan(Qc)
+    t0 = time.perf_counter()
+    res_mem = mplan(Qc)
+    mem_s = sync_s(t0)
+    rec_mem = recall(res_mem.ids.cpu().numpy(), gt)
+    require(abs(rec - rec_mem) <= 0.02,
+            f"remote recall {rec:.4f} vs in-memory {rec_mem:.4f}")
+
+    # v5: the payload in a LocalFSStore under build/, saved and loaded
+    lfs = LocalFSStore(os.path.join(work, "objects"))
+    upload_payload(lfs, idx.store.exact.read_all(), STORE_BLOCK)
+    idx.store.exact = RemoteSource(lfs, n=n_slots, d=d, block=STORE_BLOCK,
+                                   cache_granules=REMOTE["cache_granules"])
+    idx._plan_cache = None
+    want = idx.plan(query)(Qc)
+    path = os.path.join(work, "remote_v5")
+    idx.save(path)
+    with open(path + ".json") as f:
+        version = json.load(f)["version"]
+    back = PDASCIndex.load(path, device="cuda",
+                           cache_granules=REMOTE["cache_granules"])
+    got = back.plan(query)(Qc)
+    require(version == 5 and back._payload_released, "not a v5 round trip")
+    for a, b in ((got.dists, want.dists), (got.ids, want.ids)):
+        require(bool(torch.equal(a, b)), "the loaded v5 index answers "
+                "differently")
+
+    # one error window of a fault plan on the object store, met by the
+    # rerank's own fetch (prefetch off: the window's dispatches are its)
+    obj.faults = FaultPlan.parse("error:r0@0+2").injector(0)
+    idx.store.exact = RemoteSource(obj, n=n_slots, d=d, block=STORE_BLOCK,
+                                   cache_granules=REMOTE["cache_granules"])
+
+    def faulty():
+        return search_two_stage(
+            idx.data, idx.store, Qc[:8], dist=idx.distance, k=10,
+            r=idx.default_radius, beam=32, max_children=idx.max_children,
+            rerank_width=RERANK_WIDTH, prefetch=False)
+
+    for dispatch in range(2):  # each call meets one op of the window
+        try:
+            faulty()
+            raise CheckFailed("the fault window raised nothing")
+        except RemoteStoreError as e:
+            msg = str(e)
+        require(msg.startswith(
+            f"remote get failed: InjectedFault: injected error (replica r0, "
+            f"dispatch {dispatch}, window 0+2)"),
+            f"the fault surfaced as {msg!r}")
+    fres = faulty()  # the window has passed
+    require(np.array_equal(fres.ids.cpu().numpy(),
+                           res.ids[:8].cpu().numpy()),
+            "after the fault window the answers differ")
+    for h in (src, back.store.exact, idx.store.exact):
+        h.close()
+
+    log(f"[remote] streamed {n} dense_embed rows in shards of "
+        f"{REMOTE['shard_rows']} (last {n % REMOTE['shard_rows']}) into a "
+        f"SimulatedObjectStore (latency {REMOTE['latency_ms']} ms, "
+        f"parallelism 8): build {build_s:.3f} s (kmeans, gl 256, int8 "
+        f"block {STORE_BLOCK}), {n_slots} leaf slots, levels "
+        f"{idx.stats.level_sizes}")
+    log(f"[remote] two-stage beam 32 rerank {RERANK_WIDTH}, cache "
+        f"{REMOTE['cache_granules']} granules, {len(Qc)} queries: first "
+        f"{first_s:.3f} s ({len(Qc) / first_s:.1f} q/s), second "
+        f"{second_s:.3f} s ({len(Qc) / second_s:.1f} q/s); in memory "
+        f"{mem_s:.3f} s ({len(Qc) / mem_s:.1f} q/s); recall@10 remote "
+        f"{rec:.4f} vs in memory {rec_mem:.4f}")
+    log(f"[remote] memory: remote_bytes {mem['remote_bytes']} "
+        f"(= {n_slots} x {d} x 4), codes + scales + host cache {resident} "
+        f"= {resident / dense_payload:.4f} x the dense payload "
+        f"({dense_payload}; bar 0.40); host cache {mem['host_cache']}")
+    log(f"[remote] cache hit ratio {hit:.4f} ({st}); prefetch {pf}; remote "
+        f"ops {ops_}")
+    log(f"[remote] v5 save to a LocalFSStore + load: answers bit-equal; an "
+        f"error window surfaced as RemoteStoreError ({msg[:60]}...), then "
+        f"the same answers")
+    return dict(build_s=build_s, qps=len(Qc) / second_s,
+                qps_mem=len(Qc) / mem_s, recall=rec, recall_mem=rec_mem,
+                hit=hit, ops=ops_, resident=resident)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2848,11 +3343,15 @@ def main() -> int:
         rows.append(phase_scan_timing(main_run, store))
         phase_serve_two_stage(main_run, work)
         phase_store_churn(main_run, data)
-    for r in rows:  # each phase's launches of the kernel, beside the main path's
-        r["phase_launches"] = {ph: c[r["name"]] for ph, c in PHASE_LAUNCHES.items()}
     phase_recall_record()
     phase_quickstart()
-    phase_serve_cli()
+    phase_serve_cli(SERVE_CLI_PATHS)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
+        phase_distributed(work)
+        phase_remote(main_run, data, work)
+    phase_serve_cli(SERVE_CLI_REMOTE_PATHS, "serve-cli-remote")
+    for r in rows:  # each phase's launches of the kernel, beside the main path's
+        r["phase_launches"] = {ph: c[r["name"]] for ph, c in PHASE_LAUNCHES.items()}
     torch.cuda.synchronize()
     log(json.dumps({"kernels": rows}))
     log(nvidia_smi())

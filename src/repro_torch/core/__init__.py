@@ -8,6 +8,7 @@
   index     — PDASCIndex user-facing API
   radius    — CDF radius estimation + per-level radii
   reference_impl — the literal NSA oracle and the index invariants
+  distributed — sharded build / search / global top-k merge
 """
 
 from repro_torch.core import distances

@@ -12,15 +12,19 @@
     idx.delete(ids[:3])                      # gone from every search mode
     idx = idx.compact()                      # a new epoch: tiers folded in
 
+    idx = PDASCIndex.build_streaming(shards, gl=256, remote=store)
+    res = idx.plan(Query(k=10))(queries)     # exact rows from the remote tier
+
 Save and load use ``repro``'s own artifact format (``<path>.npz`` arrays
 named ``level{l}_{field}`` and ``leaf_ids``, the store's ``store_codes`` and
 ``store_scales``, plus ``<path>.json`` meta), so an index built by
 ``repro`` loads here and the two packages can be compared on the identical
 index. :meth:`PDASCIndex.from_arrays` carries the state across. Versions 1,
 2 (with or without a store), 3 (the online tiers: delta buffer and
-tombstones) and 4 (packed int4 / binary codes, with or without the online
-tiers) are read; ``repro``'s remote payload manifests (5) are not yet
-ported.
+tombstones), 4 (packed int4 / binary codes, with or without the online
+tiers) and 5 (a remote exact payload: the artifact holds the navigation
+tier and the codes, and the manifest of the granules in their object
+store) are read and written.
 
 The online tiers (``repro_torch.online``) make the index mutable: an upsert
 appends to the delta buffer, a delete sets tombstone bits, and both are
@@ -55,8 +59,10 @@ from repro_torch.store import leaf_store as store_lib
 _FORMAT_VERSION = 2  # v2: tiered leaf store (payload codes + scales)
 _MUTABLE_VERSION = 3  # v3: v2 + online tiers (delta buffer, tombstones)
 _PACKED_VERSION = 4  # v4: packed payload codes (int4 / binary backends)
-_READ_VERSIONS = (1, 2, 3, 4)
-_NOT_PORTED_VERSIONS = (5,)  # remote payload
+# v5: the exact fp32 tier stays in its remote object store; the artifact
+# carries the store's manifest instead of level0_points
+_REMOTE_VERSION = 5
+_READ_VERSIONS = (1, 2, 3, 4, 5)
 
 DEFAULT_DELTA_CAPACITY = 4096
 
@@ -89,8 +95,9 @@ class PDASCIndex:
     n_prototypes: int
     max_children: tuple[int, ...]
     default_radius: float
+    # CUDA unless the caller passes another device (raises without one)
     device: torch.device = dataclasses.field(
-        default_factory=lambda: torch.device("cpu"))
+        default_factory=lambda: resolve_device("cuda"))
     # Payload tier. None = leaf vectors stay a dense fp32 device array
     # inside ``data.levels[0]``.
     store: Optional[store_lib.LeafStore] = None
@@ -157,14 +164,31 @@ class PDASCIndex:
         return idx
 
     @classmethod
-    def from_arrays(cls, arrays: dict, meta: dict, device="cuda"
-                    ) -> "PDASCIndex":
+    def build_streaming(cls, shards, **kwargs) -> "PDASCIndex":
+        """Build shard by shard over a remote payload tier: an iterator of
+        ``[m, d]`` shards that never fit in memory together, clustered and
+        quantised one at a time, their exact fp32 granules flushed to
+        ``remote=`` as they go. Returns the released, two-stage-served form
+        (``store.exact`` a ``RemoteSource``); the knobs are
+        :func:`repro_torch.store.streaming.build_streaming`'s."""
+        from repro_torch.store import streaming as streaming_lib
+
+        return streaming_lib.build_streaming(shards, **kwargs)
+
+    @classmethod
+    def from_arrays(cls, arrays: dict, meta: dict, device="cuda", *,
+                    remote=None, cache_granules: int = 256,
+                    prefetch_workers: int = 2) -> "PDASCIndex":
         """An index from ``repro``'s saved arrays (``level{l}_{field}``,
         ``leaf_ids``, and ``store_codes`` / ``store_scales`` with a store)
         and JSON meta, placed on ``device``. A store's exact payload is the
         saved ``level0_points``, kept as a host array; the dense leaf array
-        is resident again, as after ``repro``'s load. ``mutable`` meta (v3,
-        or v4 with a packed store) restores the delta buffer
+        is resident again, as after ``repro``'s load. A remote manifest (v5)
+        instead reopens the payload's object store (``remote``, a live
+        ``RemoteStore``, or else ``remote.open_store`` of the manifest)
+        behind a ``RemoteSource`` of ``cache_granules`` and
+        ``prefetch_workers``, and the index loads released. ``mutable``
+        meta (v3, or v4 / v5 with it) restores the delta buffer
         (``delta_{vectors,ids,slots,active}``), the tombstone bits and the
         id ceiling."""
         dev = resolve_device(device)
@@ -194,12 +218,25 @@ class PDASCIndex:
         stats = msa.BuildStats(level_sizes=tuple(meta["level_sizes"]),
                                level_td=tuple(meta["level_td"]),
                                n_levels=meta["n_levels"])
-        store = None
+        store = manifest = None
         store_meta = meta.get("store")
         if store_meta is not None:
-            exact = store_lib.ExactSource(
-                np.asarray(arrays["level0_points"], np.float32),
-                store_meta["block"])
+            manifest = store_meta.get("remote")
+            if manifest is not None:  # v5: the payload stays remote
+                from repro_torch.store import remote as remote_lib
+
+                exact = remote_lib.RemoteSource(
+                    remote if remote is not None
+                    else remote_lib.open_store(manifest),
+                    n=int(manifest["n"]), d=int(manifest["d"]),
+                    block=int(manifest["block"]),
+                    prefix=manifest.get("prefix", ""),
+                    cache_granules=cache_granules,
+                    prefetch_workers=prefetch_workers)
+            else:
+                exact = store_lib.ExactSource(
+                    np.asarray(arrays["level0_points"], np.float32),
+                    store_meta["block"])
             codes = scales = None
             if store_meta["backend"] != "fp32":
                 codes = tensor(arrays["store_codes"])
@@ -212,7 +249,8 @@ class PDASCIndex:
                   n_prototypes=meta["n_prototypes"],
                   max_children=tuple(meta["max_children"]),
                   default_radius=meta["default_radius"], device=dev,
-                  store=store, epoch=int(meta.get("epoch", 0)))
+                  store=store, epoch=int(meta.get("epoch", 0)),
+                  _payload_released=manifest is not None)
         mut = meta.get("mutable")
         if mut is not None:
             idx.delta = delta_lib.DeltaBuffer(int(mut["delta_capacity"]),
@@ -482,9 +520,12 @@ class PDASCIndex:
         array, plus the quantised codes + scales once a store is attached
         (the dense copy goes with :meth:`release_dense_payload`).
         ``out_of_core``: exact fp32 payload bytes on the host or on disk (0
-        without a quantised store). ``host_cache``: decoded granules held
-        by the LRU of an on-disk payload (a host array's cache holds views
-        of the already-counted array). ``delta`` / ``tombstones``: the online
+        without a quantised store, and for a remote tier).
+        ``remote_bytes``: the exact payload held by a remote object store
+        (resident nowhere on this node). ``host_cache``: decoded granules
+        held by the LRU of an on-disk or remote payload, counted into
+        ``total_resident`` (a host array's cache holds views of the
+        already-counted array). ``delta`` / ``tombstones``: the online
         tiers' host bytes (0 until mutations are enabled)."""
         nav = 0
         for lv in self.data.levels[1:]:
@@ -494,12 +535,17 @@ class PDASCIndex:
                    if f != "points")
         nav += self.data.leaf_ids.nbytes
         payload = 0 if self._payload_released else int(leaf.points.nbytes)
-        out_of_core = host_cache = 0
+        out_of_core = remote_b = host_cache = 0
         if self.store is not None and self.store.backend != "fp32":
             payload += self.store.resident_bytes
-            out_of_core = self.store.out_of_core_bytes
-            if self.store.exact.on_disk:
-                host_cache = self.store.exact.cache_resident_bytes
+            exact = self.store.exact
+            remote = getattr(exact, "remote", False)
+            if remote:
+                remote_b = exact.nbytes
+            else:
+                out_of_core = self.store.out_of_core_bytes
+            if remote or exact.on_disk:
+                host_cache = exact.cache_resident_bytes
         delta_b = self.delta.nbytes if self.delta is not None else 0
         tomb_b = self.tombstones.nbytes if self.tombstones is not None else 0
         n = max(self.n_points, 1)
@@ -508,6 +554,7 @@ class PDASCIndex:
             navigation=int(nav),
             payload=int(payload),
             out_of_core=int(out_of_core),
+            remote_bytes=int(remote_b),
             host_cache=int(host_cache),
             delta=int(delta_b),
             tombstones=int(tomb_b),
@@ -527,7 +574,9 @@ class PDASCIndex:
             slots = self.data.levels[l].points.shape[0]
             lines.append(f"  level {l}: {size} valid / {slots} slots, TD={td:.4g}")
         if self.store is not None:
-            where = "on disk" if self.store.exact.on_disk else "in host memory"
+            exact = self.store.exact
+            where = ("in a remote store" if getattr(exact, "remote", False)
+                     else "on disk" if exact.on_disk else "in host memory")
             lines.append(
                 f"  store: {self.store.backend}, block {self.store.block}, "
                 f"exact payload {where}"
@@ -565,9 +614,11 @@ class PDASCIndex:
         meta. Version 2; 3 with the online tiers (so a loaded index resumes
         with the same live set and id ceiling); 4 for packed int4 / binary
         codes, the online tiers then in its ``mutable`` meta. The exact
-        fp32 payload is always ``level0_points`` (read back from the
-        out-of-core source if the dense copy was released). Distances
-        persist by name, so the distance must be the registry's entry."""
+        fp32 payload is ``level0_points`` (read back from the out-of-core
+        source if the dense copy was released), except behind a remote
+        store: version 5 then keeps the payload there and writes the
+        store's manifest under ``store["remote"]``. Distances persist by
+        name, so the distance must be the registry's entry."""
         try:
             registered = dist_lib.get(self.distance.name)
         except KeyError:
@@ -585,11 +636,15 @@ class PDASCIndex:
                 arrays[f"level{l}_{field}"] = getattr(lv, field).cpu().numpy()
         store_meta = None
         version = _FORMAT_VERSION
+        remote_exact = self.store is not None and getattr(
+            self.store.exact, "remote", False)
         if self.store is not None:
-            if self._payload_released:
+            if self._payload_released and not remote_exact:
                 arrays["level0_points"] = self.store.exact.read_all()
             store_meta = dict(backend=self.store.backend,
                               block=self.store.block)
+            if remote_exact:  # the payload stays remote: its manifest only
+                store_meta["remote"] = self.store.exact.manifest()
             if self.store.backend != "fp32":
                 arrays["store_codes"] = self.store.codes.cpu().numpy()
                 arrays["store_scales"] = self.store.scales.cpu().numpy()
@@ -613,6 +668,8 @@ class PDASCIndex:
         if store_meta is not None and store_meta["backend"] in ("int4",
                                                                 "binary"):
             version = _PACKED_VERSION  # dc != d: unreadable before v4
+        if remote_exact:
+            version = _REMOTE_VERSION  # no level0_points: unreadable before v5
         meta = dict(
             version=version,
             distance=self.distance.name,
@@ -630,18 +687,18 @@ class PDASCIndex:
         return arrays, meta
 
     @classmethod
-    def load(cls, path: str, *, device="cuda") -> "PDASCIndex":
+    def load(cls, path: str, *, device="cuda", remote=None,
+             cache_granules: int = 256, prefetch_workers: int = 2
+             ) -> "PDASCIndex":
         """Load an artifact written by ``repro`` or by :meth:`save`:
-        versions 1 to 4."""
+        versions 1 to 5. A v5 artifact reopens its object store from the
+        manifest (``localfs``) unless ``remote`` passes a live store (a
+        ``sim`` store must be passed); ``cache_granules`` and
+        ``prefetch_workers`` size the host LRU and prefetch pool in front
+        of it."""
         with open(path + ".json") as f:
             meta = json.load(f)
         version = meta.get("version")
-        if version in _NOT_PORTED_VERSIONS:
-            raise NotImplementedError(
-                f"index format version {version} (a remote payload "
-                f"manifest) is not yet ported to repro_torch "
-                f"({path + '.json'})"
-            )
         if version not in _READ_VERSIONS:
             raise ValueError(
                 f"unsupported index format version {version!r} in "
@@ -649,4 +706,6 @@ class PDASCIndex:
             )
         with np.load(path + ".npz") as z:
             arrays = {name: z[name] for name in z.files}
-        return cls.from_arrays(arrays, meta, device=device)
+        return cls.from_arrays(arrays, meta, device=device, remote=remote,
+                               cache_granules=cache_granules,
+                               prefetch_workers=prefetch_workers)

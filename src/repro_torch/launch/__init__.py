@@ -1,2 +1,3 @@
 """Launch layer of the port (counterpart of ``repro.launch``): the serve
-entry point."""
+entry point, device meshes over ``torch.distributed`` (``mesh``) and the
+rank-process launcher (``ranks``)."""

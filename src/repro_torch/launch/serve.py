@@ -35,9 +35,15 @@ attach an SLO tracker with multi-rate burn alerts (replicated path);
 ``--trace-dump PATH`` writes the retained sampled traces as JSON at exit
 (both serve paths — feed it to ``python -m repro_torch.obs.report``).
 
-Not ported yet: ``--store remote`` (the remote object-store tier) raises,
-and ``repro``'s Pallas block knobs ``--bm/--bn/--bd/--bq`` are absent (the
-port's ``KernelConfig`` has ``row_chunk`` only; ``--row-chunk`` stays).
+Remote payload tier: ``--mode two_stage --store remote`` keeps int8 codes on
+the device and moves the exact payload into a simulated object store
+(``--remote-latency-ms``, ``--remote-bandwidth-mbps``) behind a host LRU of
+``--remote-cache-granules`` and ``--remote-prefetch-workers`` prefetch
+threads.
+
+Not ported yet: ``repro``'s Pallas block knobs ``--bm/--bn/--bd/--bq`` are
+absent (the port's ``KernelConfig`` has ``row_chunk`` only; ``--row-chunk``
+stays).
 """
 
 from __future__ import annotations
@@ -82,11 +88,24 @@ def _parse(argv=None):
     p.add_argument("--store", default="int8",
                    choices=["int8", "fp16", "remote"],
                    help="payload tier: int8/fp16 quantised resident codes "
-                        "with a host/memmap exact tier ('remote', the "
-                        "simulated object store of DESIGN.md §3.13, is not "
-                        "yet ported and raises)")
+                        "with a host/memmap exact tier, or 'remote' — int8 "
+                        "codes with the exact tier in a simulated object "
+                        "store (DESIGN.md §3.13)")
     p.add_argument("--store-block", type=int, default=1024)
     p.add_argument("--store-path", default=None)
+    # Remote payload tier: the simulated object store's performance
+    # envelope and the host cache in front of it.
+    p.add_argument("--remote-latency-ms", type=float, default=0.0,
+                   help="simulated object store per-op latency "
+                        "(--store remote)")
+    p.add_argument("--remote-bandwidth-mbps", type=float, default=None,
+                   help="simulated object store transfer bandwidth "
+                        "(--store remote; default: unlimited)")
+    p.add_argument("--remote-cache-granules", type=int, default=256,
+                   help="host LRU capacity in front of the remote tier "
+                        "(--store remote)")
+    p.add_argument("--remote-prefetch-workers", type=int, default=2,
+                   help="async prefetch pool size (--store remote)")
     p.add_argument("--rerank-width", type=int, default=128)
     # Online substrate (DESIGN.md §3.7): interleave live writes with search
     # traffic; the EpochHandle compacts + swaps epochs between batches.
@@ -267,10 +286,6 @@ def _drive_replicated(args, router, replica_set, train, test):
 
 def main(argv=None):
     args = _parse(argv)
-    if args.store == "remote":
-        raise NotImplementedError(
-            "--store remote (the remote object-store payload tier) is not "
-            "yet ported to repro_torch: ROADMAP queue A item 6")
     # Periodic metrics dumper (DESIGN.md §3.11): rewrites PATH whole every
     # few seconds while serving; closed (with a final snapshot) at exit.
     dumper = None
@@ -297,13 +312,27 @@ def main(argv=None):
 def _build(args, train):
     t0 = time.time()
     store_kw = {}
+    remote = args.mode == "two_stage" and args.store == "remote"
     if args.mode == "two_stage":
-        store_kw = dict(store=args.store, store_block=args.store_block,
-                        store_path=args.store_path)
+        # --store remote keeps int8 codes resident; the exact tier moves to
+        # the object store after the build (make_remote below)
+        store_kw = dict(store="int8" if remote else args.store,
+                        store_block=args.store_block,
+                        store_path=None if remote else args.store_path)
     idx = PDASCIndex.build(train, gl=args.gl, distance=args.distance,
                            radius_quantile=args.radius_quantile,
                            device=args.device, **store_kw)
-    if args.mode == "two_stage":
+    if remote:
+        from repro_torch.store import SimulatedObjectStore, make_remote
+
+        obj = SimulatedObjectStore(latency_ms=args.remote_latency_ms,
+                                   bandwidth_mbps=args.remote_bandwidth_mbps)
+        make_remote(idx, obj, cache_granules=args.remote_cache_granules,
+                    prefetch_workers=args.remote_prefetch_workers)
+        print(f"[serve] remote exact tier: {obj.total_bytes} bytes in "
+              f"object store, latency={args.remote_latency_ms}ms, "
+              f"host cache={args.remote_cache_granules} granules")
+    elif args.mode == "two_stage":
         idx.release_dense_payload()  # serve within the tiered memory budget
     print(f"[serve] built on {idx.device} in {time.time()-t0:.1f}s\n"
           f"{idx.describe()}")

@@ -13,13 +13,16 @@ pipeline       kernel-layer lowering
                (∞ rerank width: the same ``search_beam`` over the exact
                payload, bit-identical to ``beam``)
 ``beam_vmap``  the seed per-query beam (gathers + ``dist.point``, no kernel)
+``sharded``    per-rank dense/beam + butterfly/allgather top-k merge over a
+               ``DeviceMesh`` (:func:`compile_sharded_plan`)
 =============  ==============================================================
 
 ``execution="auto"`` resolves to ``beam``, or to ``two_stage`` once the
 index has released its dense leaf payload. Capability conflicts
 (``two_stage`` without a store, ``dense``/``beam``/``beam_vmap`` after
 ``release_dense_payload``, ``beam_vmap`` with dirty online tiers) raise at
-plan time. ``sharded`` is not yet ported and raises too.
+plan time; ``sharded`` on a single index raises, pointing to
+:func:`compile_sharded_plan`.
 
 The online legs are bound at plan time: a plan compiled against a
 tombstoned index passes ``TombstoneSet.valid_mask()`` (a cached device
@@ -42,17 +45,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch import obs
+from repro_torch.core import distances as dist_lib
 from repro_torch.core import nsa
 from repro_torch.core.distances import BIG
 from repro_torch.obs import names as mnames
 from repro_torch.query.spec import Query, validate_query_batch
-
-_NOT_PORTED = ("sharded",)
 
 # a stale plan's execution outcome in plan_stats()
 STALENESS_REPLAN = "replans"
@@ -100,6 +102,7 @@ class Capabilities(NamedTuple):
     device: str
     store: Optional[str]  # payload-tier backend; None = dense leaf payload
     payload_released: bool
+    remote: bool  # exact payload behind a remote store (fetch = network op)
     delta_dirty: bool  # active delta entries -> the delta scan + merge leg
     tombstones_dirty: bool  # dead slots -> the slot_valid mask
 
@@ -110,6 +113,8 @@ def capabilities(index) -> Capabilities:
         device=str(index.device),
         store=index.store.backend if index.store is not None else None,
         payload_released=bool(index._payload_released),
+        remote=bool(index.store is not None
+                    and getattr(index.store.exact, "remote", False)),
         delta_dirty=bool(index.delta is not None and index.delta.n_active),
         tombstones_dirty=bool(index.tombstones is not None
                               and index.tombstones.count),
@@ -119,10 +124,10 @@ def capabilities(index) -> Capabilities:
 def _resolve_pipeline(query: Query, caps: Capabilities) -> str:
     """Choose and validate the pipeline; conflicts raise at plan time."""
     execution = query.execution
-    if execution in _NOT_PORTED:
-        raise NotImplementedError(
-            f"execution={execution!r} is not yet ported to repro_torch; "
-            f"use 'auto', 'beam', 'dense' or 'two_stage'"
+    if execution == "sharded":
+        raise ValueError(
+            "execution='sharded' needs a mesh layout: compile with "
+            "repro_torch.query.compile_sharded_plan(mesh, query, ...)"
         )
     if execution == "auto":
         execution = "two_stage" if caps.payload_released else "beam"
@@ -294,7 +299,8 @@ class SearchPlan:
             f"SearchPlan[{d['pipeline']}] epoch={caps['epoch']} "
             f"levels={caps['n_levels']} device={caps['device']} "
             f"store={caps['store'] or 'dense-resident'}"
-            + (" (payload released)" if caps["payload_released"] else ""),
+            + (" (payload released)" if caps["payload_released"] else "")
+            + (" (remote exact tier)" if caps["remote"] else ""),
             f"  query: k={q['k']} radius={q['radius']} beam={q['beam']}"
             + (f" rerank_width={q['rerank_width']}"
                if d["pipeline"] == "two_stage" else "")
@@ -315,3 +321,146 @@ def compile_plan(index, query: Query) -> SearchPlan:
     obs.counter(mnames.PLAN_COMPILES, pipeline=pipeline).inc()
     return SearchPlan(index=index, query=query, caps=caps, pipeline=pipeline,
                       radius=radius)
+
+
+# ---------------------------------------------------------------------------
+# Sharded pipeline (plans over a mesh)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedPlan:
+    """A :class:`Query` lowered onto a ``DeviceMesh``.
+
+    The plan binds what is static (mesh, database axes, distance, radius,
+    per-rank mode, merge, ``max_children``); each rank calls it with its
+    own sub-index:
+
+        plan = compile_sharded_plan(mesh, query, dist="cosine", ...)
+        res = plan(local_index, Q)                 # identical on every rank
+        res = plan(local_index, Q, slot_valid=sv)  # + this rank's tombstones
+
+    Execution is one ``distributed.search_sharded`` call: the rank's search
+    and the global top-k merge over the mesh's cached axis groups (a call
+    creates no process group)."""
+
+    query: Query
+    mesh: object
+    db_axes: tuple
+    dist: dist_lib.Distance
+    radius: object
+    shard_mode: str  # per-rank pipeline: "dense" | "beam"
+    max_children: Optional[tuple]
+    merge: str
+    pipeline: str = "sharded"
+    kernel: object = None  # query.kernel
+
+    def __call__(self, local_index, Q, *, slot_valid=None):
+        from repro_torch.core import distributed as dd
+
+        _STATS[self.pipeline]["executions"] += 1
+        obs.counter(mnames.PLAN_EXECUTIONS, pipeline=self.pipeline).inc()
+        validate_query_batch(Q, self.dist)
+        q = self.query
+        return dd.search_sharded(
+            local_index, Q, self.mesh, db_axes=self.db_axes, dist=self.dist,
+            k=q.k, r=self.radius, mode=self.shard_mode, beam=q.beam,
+            max_children=self.max_children, merge=self.merge,
+            leaf_radius_filter=q.leaf_radius_filter, with_stats=q.with_stats,
+            kernel=self.kernel, slot_valid=slot_valid,
+        )
+
+    def describe(self) -> dict:
+        """Structured counterpart of :meth:`explain` (``repro``'s fields)."""
+        from repro_torch.core import distributed as dd
+
+        q = self.query
+        kernel = self.kernel
+        return dict(
+            pipeline=self.pipeline,
+            effective_pipeline=f"sharded/{self.shard_mode}",
+            lowering=_LOWERING[self.shard_mode],
+            query=dict(
+                k=q.k, radius=self.radius, beam=q.beam,
+                leaf_radius_filter=q.leaf_radius_filter,
+                execution=q.execution,
+            ),
+            mesh=dict(
+                axes={a: dd.axis_size(self.mesh, a) for a in self.db_axes},
+                merge=self.merge,
+            ),
+            online_legs=dict(
+                tombstone_mask=None,  # per-rank slot_valid at call time
+                tombstone_lowering=(
+                    "per-shard slot_valid slices (passed at call time; "
+                    "route_writes/local_slot_valid build them)"),
+                delta=False,
+                delta_lowering="none (sharded plans serve compacted tiers)",
+            ),
+            kernel=(kernel._asdict() if hasattr(kernel, "_asdict")
+                    else kernel),
+        )
+
+    def explain(self) -> str:
+        d = self.describe()
+        q = d["query"]
+        axes = "x".join(f"{a}={n}" for a, n in d["mesh"]["axes"].items())
+        return "\n".join([
+            f"ShardedPlan[sharded/{self.shard_mode}] mesh axes ({axes}), "
+            f"merge={self.merge}",
+            f"  query: k={q['k']} radius={q['radius']} "
+            f"beam={q['beam']} "
+            f"leaf_radius_filter={q['leaf_radius_filter']}",
+            f"  per-shard lowering: {d['lowering']}",
+            f"  merge: distributed.topk_merge_{self.merge} over "
+            f"{tuple(self.db_axes)} (global ids = shard offset + local rows)",
+            f"  tombstone mask: {d['online_legs']['tombstone_lowering']}",
+        ])
+
+
+def compile_sharded_plan(
+    mesh,
+    query: Query,
+    *,
+    dist,
+    db_axes: Sequence[str] = ("data",),
+    max_children: Optional[tuple] = None,
+    merge: str = "butterfly",
+    default_radius: Optional[float] = None,
+) -> ShardedPlan:
+    """Compile a :class:`Query` into a plan over a sharded deployment.
+
+    ``query.execution`` selects the per-rank pipeline: ``"dense"`` or
+    ``"beam"`` (``"auto"`` / ``"sharded"`` mean dense). ``"beam"`` needs
+    ``max_children``, the per-level child bound over every shard
+    (``distributed.max_children_sharded``). ``query.radius=None`` falls back
+    to ``default_radius``."""
+    shard_mode = query.execution
+    if shard_mode in ("auto", "sharded"):
+        shard_mode = "dense"
+    if shard_mode not in ("dense", "beam"):
+        raise ValueError(
+            f"sharded plans run per-shard 'dense' or 'beam', not "
+            f"{query.execution!r} (two_stage shards through "
+            f"distributed.scan_quantized_sharded)"
+        )
+    if shard_mode == "beam" and max_children is None:
+        raise ValueError(
+            "per-shard 'beam' needs max_children (the static per-level "
+            "child bound of the stacked sub-indexes)"
+        )
+    radius = query.radius if query.radius is not None else default_radius
+    if radius is None:
+        raise ValueError(
+            "sharded plans need a radius: set Query.radius or pass "
+            "default_radius="
+        )
+    plan = ShardedPlan(
+        query=query, mesh=mesh, db_axes=tuple(db_axes),
+        dist=dist_lib.get(dist), radius=radius, shard_mode=shard_mode,
+        max_children=tuple(max_children) if max_children is not None
+        else None, merge=merge, kernel=query.kernel,
+    )
+    _STATS[plan.pipeline]["compiles"] += 1
+    obs.counter(mnames.PLAN_COMPILES, pipeline=plan.pipeline).inc()
+    return plan

@@ -443,8 +443,18 @@ def test_serve_replicated_path_runs_to_its_end(capsys):
     assert "errors=0" in out and "online recall estimate" in out, out
 
 
-def test_serve_refuses_the_remote_store():
+def test_serve_refuses_the_remote_store(capsys):
+    """``--store remote`` is ported: the two-stage index moves its exact
+    payload into a simulated object store and serves from it, on the
+    single-engine path and (errors=0) on the replicated one."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        serve.main(SERVE + ["--mode", "two_stage", "--store", "remote"])
+    remote = ["--mode", "two_stage", "--store", "remote", "--store-block",
+              "64", "--remote-latency-ms", "0.1", "--remote-cache-granules",
+              "4", "--remote-prefetch-workers", "1"]
+    serve.main(SERVE + remote)
+    out = capsys.readouterr().out
+    assert "remote exact tier" in out and "recall@10=" in out, out
+    assert "exact payload in a remote store" in out
+    serve.main(SERVE + remote + ["--replicas", "2"])
+    assert "errors=0" in capsys.readouterr().out

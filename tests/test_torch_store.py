@@ -476,7 +476,7 @@ def test_plan_resolution_after_release(tmp_path):
     for execution in ("beam", "dense", "beam_vmap"):
         with pytest.raises(ValueError, match="was released"):
             idx.plan(Query(execution=execution))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="compile_sharded_plan"):
         idx.plan(Query(execution="sharded"))
     with pytest.raises(ValueError, match="already released"):
         idx.attach_store("int8")
