@@ -180,6 +180,28 @@ result line):
    ``RemoteStoreError`` naming the injected fault, and then passes.
 10. (i) The serve CLI with ``--mode two_stage --store remote`` at n =
    200,000 (256 queries) on both paths: exit 0, ``errors=0`` replicated.
+11. (j) The launch-geometry autotuner, with its cache pointed at a fresh
+   file under ``build/``: ``autotune.tune`` for every op at the main
+   path's shapes (pairwise's build slab [1024, 256, 256, 100]; rank's
+   leaf [1000, 384, 100, 10]; knn [1000, 1,000,000, 100, 10]; swap's
+   sweep (g, k) = (256, 128) over 1,024 groups; the scan at [1000, 384,
+   100, 128] in int8, float16, int4 and binary). Every candidate's output
+   is held to the plain version before its time counts, and compared bit
+   for bit with the heuristic's; per op the candidates, the heuristic's
+   geometry and median ms and the winner's are printed with the card's
+   name and power limit. A second ``tune`` must answer from the cache
+   without timing anything. Then the 1M index is rebuilt with the swap
+   winner's ``kb`` and searched with ``KernelConfig(auto=True)`` (plan and
+   ``ops.knn``), launch counts in the ``autotune`` window: ids equal to the
+   main path's up to near-ties where the swap winner is the heuristic's
+   geometry, else recall within 0.01 of it; the auto plan equal to the
+   default plan on the rebuilt index up to near-ties. The earlier phases
+   keep ``KernelConfig()``.
+12. (k) NN-Descent at bench_recall.py's setting: ``train[:4000]``,
+   ``n_neighbors=15``, ``iters=5``; 200 held-out queries (of its 1,000)
+   with ``n_seeds=24``, ``max_steps=40``: build s, us a query, recall@10
+   against ``exact_knn``; the card's graph equal to the CPU's on integer
+   data. Then the script's whole time.
 
 Tolerance rule (as in tests/test_torch_*.py): fp32 results agree within
 rtol = 1e-5 and atol = 1e-5 * max(1, max|ref|); l2 distances are compared
@@ -295,6 +317,8 @@ WINDOW_KERNELS = {
     # (h)
     "remote-build": ("pairwise",),  # build_streaming's k-means relabels
     "remote-search": ("scan", "rank"),  # two-stage over the remote tier
+    # (j): the tuned rebuild, its auto plan and the tuned exact k-NN
+    "autotune": ("pairwise", "swap_deltas", "rank", "knn"),
 }
 SYMBOLS = {  # each kernel's __global__ functions
     "pairwise": ("pairwise_kernel",), "rank": ("rank_kernel",),
@@ -334,6 +358,18 @@ DIST_RANKS = 4
 DIST_DELETES = 1280
 REMOTE = dict(shard_rows=65_536, latency_ms=0.2,
               cache_granules=64)  # (h): bench_store.py --scenario remote
+TUNE_SWAP = (256, 128)  # (j): the build's sweep (g, k), 1,024 groups a slab
+TUNE_CASES = [  # (j): (op, form, dtype, key shape) at the main path's shapes
+    ("pairwise", "l2", "float32", (GROUP_CHUNK, 256, 256, 100)),  # build slab
+    ("rank", "l2", "float32", (N_QUERIES, SCAN_WIDTH, 100, 10)),  # leaf rank
+    ("knn", "l2", "float32", (N_QUERIES, N_MAIN, 100, 10)),  # exact_knn
+    ("swap", "none", "float32", TUNE_SWAP),
+] + [("scan", "l2", fmt, (N_QUERIES, SCAN_WIDTH, 100, RERANK_WIDTH))
+     for fmt in ("int8", "float16", "int4", "binary")]  # the two-stage scan
+TUNE_REPS = 5  # timed calls a candidate (median), after one warmup
+TUNE_TURNS = 10  # (j): search calls of each plan, default and auto in turns
+NND_TRAIN, NND_QUERIES = 4000, 200  # (k): bench_recall.py's train[:4000];
+# 200 of its 1,000 queries (the script's time)
 
 
 class CheckFailed(RuntimeError):
@@ -3299,7 +3335,255 @@ def phase_remote(main: dict, data: np.ndarray, work: str) -> dict:
                 hit=hit, ops=ops_, resident=resident)
 
 
+# ---------------------------------------------------------------------------
+# (j) the launch-geometry autotuner; (k) the NN-Descent baseline
+# ---------------------------------------------------------------------------
+
+
+def tune_plain(op, form, dtype, inputs, k):
+    """The plain version's output on the tuner's inputs (``autotune``'s
+    layouts), for holding each candidate geometry to it."""
+    import torch
+    from repro_torch.kernels import autotune, ref
+
+    if op == "pairwise":
+        X, Y = inputs
+        return torch.cat([ref.pairwise_ref(X[i:i + 32], Y[i:i + 32], form)
+                          for i in range(0, X.shape[0], 32)])
+    if op == "knn":
+        return ref.knn_ref(*inputs, k, form)
+    if op == "rank":
+        Q, P, sq, cand, ok = inputs
+        return ref.rank_gathered_ref(Q, P, sq, cand, ok, k, form)
+    if op == "scan":
+        Q, codes, scales, cand, ok = inputs
+        fmt = dtype if dtype in ("int4", "binary") else "dense"
+        return ref.scan_gathered_ref(Q, codes, scales, autotune.SCAN_BLOCK,
+                                     cand, ok, k, form, fmt)
+    return ref.swap_deltas_ref(*inputs, k)
+
+
+def tune_check(op, form, dtype, inputs, out, plain, k) -> float:
+    """One candidate's output against the plain version (the tolerance
+    rule; top-k ids up to near-ties, each picked id's plain distance equal
+    to the kernel's). Returns the max error."""
+    import torch
+    from repro_torch.kernels import autotune, ref
+
+    squared = form == "l2"
+    if op in ("pairwise", "swap"):
+        return values_agree(out.cpu().numpy(), plain.cpu().numpy(),
+                            squared=squared and op == "pairwise")
+    kd, ki = out
+    rd, ri = plain
+    Q = inputs[0]
+    if op == "knn":
+        again = ref.rowwise_ref(Q, inputs[1][ki.long()], form)
+    elif op == "rank":
+        _, P, sq, cand, _ = inputs
+        picked = torch.gather(cand, 1, ki.long()).long()
+        again = ref.rowwise_ref(Q, P[picked], form, sq[picked])
+    else:
+        _, codes, scales, cand, _ = inputs
+        fmt = dtype if dtype in ("int4", "binary") else "dense"
+        again = torch.gather(scan_rows(Q, codes, scales, autotune.SCAN_BLOCK,
+                                       cand, form, fmt), 1, ki.long())
+    return topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu(),
+                      squared=squared)
+
+
+def tune_one(op, form, dtype, shape) -> dict:
+    """``autotune.tune`` at one key, each candidate held to the plain
+    version (and compared bit for bit with the heuristic's output) before
+    its time counts; then a second ``tune`` that must answer from the
+    cache without timing anything."""
+    import torch
+    from repro_torch.kernels import autotune
+
+    inputs = autotune.make_inputs(op, form, dtype, shape)
+    k = autotune.shape_k(op, shape)
+    plain = tune_plain(op, form, dtype, inputs, k)
+    rows: list = []
+    heur: list = []  # the heuristic's output (the sweep's first member)
+
+    def measure(knobs):
+        out = autotune.launch(op, form, dtype, inputs, knobs, k)
+        err = tune_check(op, form, dtype, inputs, out, plain, k)
+        outs = out if isinstance(out, tuple) else (out,)
+        if not rows:
+            heur.extend(outs)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(outs, heur))
+        us = autotune.time_knobs(op, form, dtype, shape, knobs, reps=TUNE_REPS,
+                                 inputs=inputs)
+        rows.append(dict(knobs=knobs, us=us, err=err, bit_equal=same))
+        return us
+
+    r = autotune.tune(op, form=form, dtype=dtype, shape=shape, measure=measure)
+
+    def exploding(knobs):
+        raise CheckFailed(f"autotune {op}: a cache hit timed {knobs}")
+
+    again = autotune.tune(op, form=form, dtype=dtype, shape=shape,
+                          measure=exploding)
+    require(again["cached"] and again["winner"] == r["winner"],
+            f"autotune {op} {dtype}: the second tune missed the cache")
+    require(autotune.lookup(op=op, form=form, dtype=dtype,
+                            shape=shape) == r["winner"],
+            f"autotune {op} {dtype}: the winner is not cached")
+    require(r["default"] == rows[0]["knobs"],
+            f"autotune {op}: the sweep did not start at the heuristic")
+    waste = {json.dumps(s["knobs"]): s["waste"] for s in r["sweep"]}
+    for row in rows:
+        row["waste"] = waste[json.dumps(row["knobs"])]
+    win = next(row for row in rows if row["knobs"] == r["winner"])
+    log(f"[autotune] {op} {form} {dtype} {list(shape)}: {len(rows)} "
+        f"candidates, each within the rule (max err "
+        f"{max(row['err'] for row in rows):.3g}); heuristic "
+        f"{r['default']} {rows[0]['us'] / 1e3:.4f} ms; winner {r['winner']} "
+        f"{win['us'] / 1e3:.4f} ms (waste {win['waste']}); bit-equal to the "
+        f"heuristic's output: {sum(row['bit_equal'] for row in rows)} of "
+        f"{len(rows)}")
+    for row in rows:
+        log(f"[autotune]   {json.dumps(row['knobs'])}: {row['us'] / 1e3:.4f} "
+            f"ms, waste {row['waste']}, err {row['err']:.3g}, bit-equal "
+            f"{row['bit_equal']}")
+    del inputs, plain
+    return dict(op=op, form=form, dtype=dtype, shape=list(shape),
+                heuristic=r["default"], heuristic_ms=rows[0]["us"] / 1e3,
+                winner=r["winner"], winner_ms=win["us"] / 1e3,
+                candidates=rows)
+
+
+def phase_autotune(main: dict, data: np.ndarray, work: str) -> dict:
+    """(j): ``autotune.tune`` for every op at the main path's shapes, with
+    a fresh cache under the run's tmp dir, each candidate held to its plain
+    version; a second tune answers from the cache. Then the 1M index
+    rebuilt with the swap winner's ``kb`` and searched through
+    ``Query(k=10, kernel=KernelConfig(auto=True))`` and ``ops.knn`` with
+    the same config (the ``autotune`` launch window), held to the main
+    path's run: the same ids up to near-ties where the winners launch the
+    heuristic's swap geometry; else (S sums in another order, so k-medoids
+    near-ties may flip) recall within 0.01 of the main path's. On the
+    rebuilt index the auto plan is also held to the default plan."""
+    import torch
+    from repro_torch.core.index import PDASCIndex
+    from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.query import Query
+
+    autotune.set_cache_path(os.path.join(work, "kernel_tune.json"))
+    log(f"[autotune] {nvidia_smi()}; cache {autotune.cache_path()} (fresh)")
+    t0 = time.perf_counter()
+    tuned = [tune_one(*case) for case in TUNE_CASES]
+    tune_s = time.perf_counter() - t0
+    log(f"[autotune] tuned {len(tuned)} keys in {tune_s:.1f} s: "
+        + json.dumps([{k: t[k] for k in ("op", "dtype", "heuristic",
+                                          "heuristic_ms", "winner",
+                                          "winner_ms")} for t in tuned]))
+
+    kb = autotune.lookup(op="swap", form="none", dtype="float32",
+                         shape=TUNE_SWAP)["kb"]
+    heur_kb = autotune.heuristic("swap", TUNE_SWAP)["kb"]
+    auto = ops.KernelConfig(auto=True)
+    Qc, DB = main["Qc"], _cuda(data)
+    start_phase()
+    t0 = time.perf_counter()
+    idx = PDASCIndex.build(data, gl=256, distance="euclidean",
+                           radius_quantile=0.35, group_chunk=GROUP_CHUNK,
+                           kb=kb, device="cuda")
+    build_s = sync_s(t0)
+    plan = idx.plan(Query(k=10, kernel=auto))
+    t0 = time.perf_counter()
+    res = plan(Qc)
+    search_s = sync_s(t0)
+    kd, ki = ops.knn(Qc, DB, "l2", k=10, config=auto)
+    torch.cuda.synchronize()
+    launched("autotune")
+    require(plan.kernel.tuned_gen == autotune.generation(),
+            "the auto plan is not stamped with the tuner's generation")
+    # the tuned knn against the main path's exact_knn (default geometry)
+    rd, ri = ops.knn(Qc, DB, "l2", k=10)
+    again = ref.rowwise_ref(Qc, DB[ki.long()], "l2")
+    knn_err = topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu(),
+                         squared=True)
+    require(np.array_equal(ri.cpu().numpy(), main["gt"]),
+            "exact_knn is not repeatable")
+    default_plan = idx.plan(Query(k=10))
+    plain = default_plan(Qc)
+    topk_agree(res.dists.cpu(), res.ids.cpu(), plain.dists.cpu(),
+               plain.ids.cpu(), res.dists.cpu())
+    # end to end: the two plans' calls in turns (default, auto, auto,
+    # default, ...), each a host clock around a synchronised call
+    calls = {"default": [], "auto": []}
+    for turn in range(TUNE_TURNS):
+        for name in (("default", "auto") if turn % 2 == 0
+                     else ("auto", "default")):
+            t0 = time.perf_counter()
+            (plan if name == "auto" else default_plan)(Qc)
+            calls[name].append(sync_s(t0) * 1e3)
+    rec = recall(res.ids.cpu().numpy(), main["gt"])
+    same_build = idx.stats.level_td == main["idx"].stats.level_td
+    if kb == heur_kb:
+        require(same_build, "the rebuild at the heuristic's kb differs from "
+                "the main path's build")
+        base = main["res"]
+        topk_agree(res.dists.cpu(), res.ids.cpu(), base.dists.cpu(),
+                   base.ids.cpu(), res.dists.cpu())
+    else:
+        require(abs(rec - main["recall"]) <= 0.01,
+                f"tuned build recall {rec:.4f} vs {main['recall']:.4f}")
+    log(f"[autotune] main path with KernelConfig(auto=True): swap kb {kb} "
+        f"(heuristic {heur_kb}); build {build_s:.3f} s, level TDs "
+        f"{'equal to' if same_build else 'differ from'} the main build's "
+        f"({idx.stats.level_td[0]:.6g} vs {main['idx'].stats.level_td[0]:.6g} "
+        f"at level 0); {len(Qc)} queries {search_s:.4f} s (first call); "
+        f"recall@10 {rec:.4f} (main path {main['recall']:.4f}); auto plan == "
+        f"default plan on this index up to near-ties; tuned knn vs default "
+        f"max err {knn_err:.3g}; {TUNE_TURNS} calls each in turns, median "
+        f"ms: default {np.median(calls['default']):.4f}, auto "
+        f"{np.median(calls['auto']):.4f}")
+    autotune.set_cache_path(None)
+    del idx, plan, default_plan, res, plain, DB
+    torch.cuda.empty_cache()
+    return dict(tuned=tuned, build_s=build_s, search_s=search_s, recall=rec,
+                kb=kb, calls=calls)
+
+
+def phase_nndescent(data: np.ndarray, test: np.ndarray) -> dict:
+    """(k): NN-Descent at bench_recall.py's setting (train[:4000],
+    n_neighbors 15, iters 5; search n_seeds 24, max_steps 40) on the first
+    NND_QUERIES held-out queries, recall@10 against ``exact_knn``; and the
+    card's graph equal to the CPU's on integer-valued data."""
+    from repro_torch.baselines import NNDescentIndex, exact_knn
+
+    rng = np.random.default_rng(3)
+    ints = rng.integers(0, 16, (400, 8)).astype(np.float32)
+    kw = dict(n_neighbors=10, iters=3, seed=1)
+    require(np.array_equal(
+        NNDescentIndex.build(ints, device="cuda", **kw).graph,
+        NNDescentIndex.build(ints, device="cpu", **kw).graph),
+        "NN-Descent on integer data: the card's graph differs from the CPU's")
+    train, Q = data[:NND_TRAIN], test[:NND_QUERIES]
+    t0 = time.perf_counter()
+    nnd = NNDescentIndex.build(train, n_neighbors=15, distance="euclidean",
+                               iters=5, device="cuda")
+    build_s = sync_s(t0)
+    _, gt = exact_knn(Q, train, k=10, device="cuda")
+    t0 = time.perf_counter()
+    d, ids = nnd.search(Q, k=10, n_seeds=24, max_steps=40)
+    search_s = sync_s(t0)
+    rec = recall(ids, gt.cpu().numpy())
+    require(np.isfinite(d).all() and rec > 0,
+            f"NN-Descent found nothing (recall {rec})")
+    log(f"[nndescent] dense_embed train[:{NND_TRAIN}] n_neighbors=15 iters=5 "
+        f"on the card: build {build_s:.3f} s; {len(Q)} queries n_seeds=24 "
+        f"max_steps=40: {search_s / len(Q) * 1e6:.1f} us a query; recall@10 "
+        f"{rec:.4f}; card graph == CPU graph on integer data")
+    return dict(build_s=build_s, us_per_query=search_s / len(Q) * 1e6,
+                recall=rec)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -3350,6 +3634,10 @@ def main() -> int:
         phase_distributed(work)
         phase_remote(main_run, data, work)
     phase_serve_cli(SERVE_CLI_REMOTE_PATHS, "serve-cli-remote")
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
+        phase_autotune(main_run, data, work)
+    phase_nndescent(data, test)
+    log(f"[script] {time.perf_counter() - t_start:.1f} s from its start")
     for r in rows:  # each phase's launches of the kernel, beside the main path's
         r["phase_launches"] = {ph: c[r["name"]] for ph, c in PHASE_LAUNCHES.items()}
     torch.cuda.synchronize()

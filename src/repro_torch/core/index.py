@@ -130,6 +130,7 @@ class PDASCIndex:
         row_chunk: int = 512,
         group_chunk: int = 8,
         swap_tol: float = 1e-3,
+        kb: int = 0,
         shuffle: bool = True,
         store: Optional[str] = None,
         store_block: int = 1024,
@@ -138,10 +139,11 @@ class PDASCIndex:
     ) -> "PDASCIndex":
         """Build the index on ``device`` (CUDA unless ``device="cpu"``).
         ``generator`` (a CPU ``torch.Generator``) drives the shuffle and the
-        radius sample; omitted, each draws from seed 0. ``store`` ("int8",
-        "fp16", "int4", "binary" or "fp32") also attaches the payload store
-        (:meth:`attach_store`); ``store_path`` puts its exact fp32 payload
-        on disk."""
+        radius sample; omitted, each draws from seed 0. ``kb``: the swap
+        sweep kernel's slots a block (0: its heuristic; ``repro``'s
+        ``bg``). ``store`` ("int8", "fp16", "int4", "binary" or "fp32")
+        also attaches the payload store (:meth:`attach_store`);
+        ``store_path`` puts its exact fp32 payload on disk."""
         dev = resolve_device(device)
         dist = dist_lib.get(distance)
         dataset = _validate_points(dataset, dist, what="build")
@@ -150,7 +152,7 @@ class PDASCIndex:
             dataset, gl=gl, n_prototypes=k_protos, distance=dist,
             method=method, max_swaps=max_swaps, generator=generator,
             row_chunk=row_chunk, group_chunk=group_chunk, swap_tol=swap_tol,
-            shuffle=shuffle, device=dev,
+            kb=kb, shuffle=shuffle, device=dev,
         )
         default_r = radius_lib.estimate_radius(
             torch.from_numpy(dataset).to(dev), dist, quantile=radius_quantile,
@@ -348,12 +350,12 @@ class PDASCIndex:
             leaf = self.data.levels[0]
             d, slot = kops.rank_gathered(
                 Qb, leaf.points, leaf.sq_norm, cand_idx, cand_ok,
-                self.distance, k=1)
+                self.distance, k=1, config=kernel)
         else:
             d, slot = kops.scan_quantized(
                 Qb, self.store.codes, self.store.scales, cand_idx, cand_ok,
                 self.distance, k=1, block=self.store.block,
-                code_format=self.store.code_format)
+                code_format=self.store.code_format, config=kernel)
         slots = torch.gather(cand_idx, 1, slot.long())[:, 0]
         found = d[:, 0] < BIG / 2
         return torch.where(found, slots, 0).to(torch.int32).cpu().numpy()
@@ -464,7 +466,7 @@ class PDASCIndex:
             query = dataclasses.replace(query, **overrides)
         if self._plan_cache is None:
             self._plan_cache = {}
-        key = (query, query_plan.capabilities(self))
+        key = (query, query_plan.capabilities(self, query.kernel))
         plan = self._plan_cache.get(key)
         if plan is not None:
             query_plan.record_cache_hit(plan.pipeline)

@@ -217,11 +217,15 @@ def swap_reference(D: Tensor, valid: Tensor, medoids: Tensor, *,
     return medoids, n
 
 
-def _masked_swap_deltas(D: Tensor, valid: Tensor, medoids: Tensor) -> Tensor:
+def _masked_swap_deltas(D: Tensor, valid: Tensor, medoids: Tensor, *,
+                        kb: int = 0) -> Tensor:
     """``[G, k, g]`` swap deltas from the kernel layer, with medoid columns,
-    invalid columns and unused slots masked to +inf."""
+    invalid columns and unused slots masked to +inf. ``kb``: the sweep
+    kernel's slots a block (0: its heuristic), ``repro``'s row tile
+    ``bg``."""
     d1, n1, d2 = _nearest_caches(D, medoids, valid)
-    dTD = kops.swap_deltas(D, d1, d2, n1, valid, k=medoids.shape[1])
+    dTD = kops.swap_deltas(D, d1, d2, n1, valid, k=medoids.shape[1],
+                           kb=kb or None)
     return _mask_deltas(dTD, valid, medoids)
 
 
@@ -263,13 +267,14 @@ def _eager_accept(dTD: Tensor, medoids: Tensor, tol: float,
 
 
 def sweep_once(D: Tensor, valid: Tensor, medoids: Tensor, td: Tensor, *,
-               tol: float = 1e-6, active: Optional[Tensor] = None):
+               tol: float = 1e-6, active: Optional[Tensor] = None,
+               kb: int = 0):
     """One eager multi-swap sweep. Returns ``(medoids, td, n_accepted,
     improving)``, TD non-increasing; ``improving`` is False iff no single
     swap improves."""
     G, g = D.shape[0], D.shape[1]
     rows = _rows(G, D.device)
-    dTD = _masked_swap_deltas(D, valid, medoids)
+    dTD = _masked_swap_deltas(D, valid, medoids, kb=kb)
     flat = dTD.reshape(G, -1)
     delta1, best = flat.min(1)
     i1, j1 = best // g, best % g
@@ -291,7 +296,8 @@ def sweep_once(D: Tensor, valid: Tensor, medoids: Tensor, td: Tensor, *,
 
 
 def swap(D: Tensor, valid: Tensor, medoids: Tensor, *, max_swaps: int = 64,
-         tol: float = 1e-6, rel_tol: float = 0.0) -> tuple[Tensor, Tensor]:
+         tol: float = 1e-6, rel_tol: float = 0.0, kb: int = 0
+         ) -> tuple[Tensor, Tensor]:
     """Eager multi-swap FasterPAM loop over a slab of groups. Returns
     ``(medoids, n_swaps)``.
 
@@ -306,7 +312,7 @@ def swap(D: Tensor, valid: Tensor, medoids: Tensor, *, max_swaps: int = 64,
         if not bool(active.any()):
             break
         new_m, new_td, n_acc, improving = sweep_once(
-            D, valid, medoids, td, tol=tol, active=active)
+            D, valid, medoids, td, tol=tol, active=active, kb=kb)
         keep = improving & (td - new_td > rel_tol * torch.abs(new_td))
         medoids = torch.where(active[:, None], new_m, medoids)
         td = torch.where(active, new_td, td)
@@ -337,30 +343,31 @@ def alternate(D: Tensor, valid: Tensor, medoids: Tensor, *,
 
 def kmedoids(D: Tensor, k: int, valid: Optional[Tensor] = None, *,
              method: str = "pam", max_swaps: int = 64,
-             rel_tol: float = 0.0) -> KMedoidsResult:
+             rel_tol: float = 0.0, kb: int = 0) -> KMedoidsResult:
     """Cluster one (padded) group ``D [g, g]`` into ``k`` medoids: a batch
     of one through :func:`kmedoids_grouped`."""
     if valid is None:
         valid = torch.ones(D.shape[0], dtype=torch.bool, device=D.device)
     res = kmedoids_grouped(D[None], k, valid[None], method=method,
-                           max_swaps=max_swaps, rel_tol=rel_tol)
+                           max_swaps=max_swaps, rel_tol=rel_tol, kb=kb)
     return KMedoidsResult(*(a[0] for a in res))
 
 
 def kmedoids_grouped(Dg: Tensor, k: int, valid: Tensor, *, method: str = "pam",
-                     max_swaps: int = 64, rel_tol: float = 0.0
+                     max_swaps: int = 64, rel_tol: float = 0.0, kb: int = 0
                      ) -> KMedoidsResult:
     """Cluster a slab of groups ``Dg [G, g, g]``, ``valid [G, g]``.
 
     ``method``: "pam" (pruned BUILD + eager multi-swap FasterPAM),
     "pam_reference" (exact BUILD + the one-swap-per-sweep loop),
-    "alternate" or "build" (BUILD only)."""
+    "alternate" or "build" (BUILD only). ``kb``: the swap sweep kernel's
+    slots a block on the card (0: its heuristic)."""
     Dg = Dg.float()
     n_swaps = torch.zeros(Dg.shape[0], dtype=torch.int32, device=Dg.device)
     if method == "pam":
         medoids = build_grouped_pruned(Dg, k, valid)
         medoids, n_swaps = swap(Dg, valid, medoids, max_swaps=max_swaps,
-                                rel_tol=rel_tol)
+                                rel_tol=rel_tol, kb=kb)
     elif method == "pam_reference":
         medoids = build_grouped(Dg, k, valid)
         medoids, n_swaps = swap_reference(Dg, valid, medoids,

@@ -89,7 +89,7 @@ def _cluster_groups(dist: dist_lib.Distance, gpts: Tensor, gvld: Tensor, *,
                     k: int, method: str, max_swaps: int, swap_tol: float,
                     row_chunk: int,
                     generator: Optional[torch.Generator] = None,
-                    init: Optional[Tensor] = None):
+                    init: Optional[Tensor] = None, kb: int = 0):
     """Cluster one slab of groups ``gpts [B, g, d]`` -> ``(medoids [B, k],
     labels [B, g], td [B])``.
 
@@ -120,14 +120,15 @@ def _cluster_groups(dist: dist_lib.Distance, gpts: Tensor, gvld: Tensor, *,
         return medoids, labels.to(torch.int32), gpts.new_zeros(B)
     Dg = _group_pairwise_dense(dist, gpts, gvld, row_chunk)
     res = km.kmedoids_grouped(Dg, k, gvld, method=method,
-                              max_swaps=max_swaps, rel_tol=swap_tol)
+                              max_swaps=max_swaps, rel_tol=swap_tol, kb=kb)
     return res.medoids, res.labels, res.td
 
 
 def _build_level(points: Tensor, valid: Tensor, carry_a: Tensor,
                  carry_b: Tensor, *, dist: dist_lib.Distance, gl: int, k: int,
                  method: str, max_swaps: int, swap_tol: float, row_chunk: int,
-                 group_chunk: int, generator: Optional[torch.Generator] = None):
+                 group_chunk: int, generator: Optional[torch.Generator] = None,
+                 kb: int = 0):
     """Cluster one level. Returns the level's final-layout arrays, the
     next level's items (initial layout), the remap initial -> final slot
     for fixing the lower level's parents, and the level's summed TD."""
@@ -147,7 +148,7 @@ def _build_level(points: Tensor, valid: Tensor, carry_a: Tensor,
         m, lab, t = _cluster_groups(
             dist, gpts[s:s + step], gvld[s:s + step], k=k, method=method,
             max_swaps=max_swaps, swap_tol=swap_tol, row_chunk=row_chunk,
-            generator=generator)
+            generator=generator, kb=kb)
         medoids.append(m)
         labels.append(lab)
         td.append(t)
@@ -234,7 +235,7 @@ def _cluster_levels(points: Tensor, valid: Tensor, carry_a: Tensor,
                     k: int, method: str, max_swaps: int, swap_tol: float,
                     row_chunk: int, group_chunk: int,
                     generator: Optional[torch.Generator] = None,
-                    prev_levels: Optional[list] = None):
+                    prev_levels: Optional[list] = None, kb: int = 0):
     """Bottom-up level loop shared by the build and the online compaction:
     cluster the items into groups of ``gl`` until one group remains.
 
@@ -256,7 +257,7 @@ def _cluster_levels(points: Tensor, valid: Tensor, carry_a: Tensor,
             points, valid, carry_a, carry_b, dist=dist, gl=gl, k=k,
             method=method, max_swaps=max_swaps, swap_tol=swap_tol,
             row_chunk=row_chunk, group_chunk=group_chunk,
-            generator=generator,
+            generator=generator, kb=kb,
         )
         if raw_levels:  # fix the lower level's parents through the reorder
             p = raw_levels[-1]["parent"].long()
@@ -314,8 +315,8 @@ def build_index_arrays(
     data, *, gl: int, n_prototypes: Optional[int] = None,
     distance="euclidean", method: str = "pam", max_swaps: int = 64,
     generator: Optional[torch.Generator] = None, row_chunk: int = 512,
-    group_chunk: int = 8, swap_tol: float = 1e-3, shuffle: bool = True,
-    device="cuda",
+    group_chunk: int = 8, swap_tol: float = 1e-3, kb: int = 0,
+    shuffle: bool = True, device="cuda",
 ) -> tuple[PDASCIndexData, tuple[Tensor, ...]]:
     """MSA build: the index + per-level TD scalars (on ``device``: CUDA
     unless ``device="cpu"``; raises when CUDA is asked for and absent).
@@ -324,7 +325,9 @@ def build_index_arrays(
     the shuffle and, with ``method="kmeans"``, the k-means++ seeds;
     ``shuffle=False`` with a k-medoids method draws nothing. ``group_chunk`` bounds the
     per-level working set at O(group_chunk · gl²) (0 = the whole level);
-    ``swap_tol`` is the eager swap's relative-improvement cutoff."""
+    ``swap_tol`` is the eager swap's relative-improvement cutoff; ``kb``
+    the swap sweep kernel's slots a block on the card (``repro``'s row
+    tile ``bg``; 0: the kernel's heuristic)."""
     dist = dist_lib.get(distance)
     k = n_prototypes or gl // 2
     if k < 1 or k > gl:
@@ -349,7 +352,7 @@ def build_index_arrays(
         perm.to(torch.int32), torch.full((n,), -1, dtype=torch.int32, device=dev),
         dist=dist, gl=gl, k=k, method=method, max_swaps=max_swaps,
         swap_tol=swap_tol, row_chunk=row_chunk, group_chunk=group_chunk,
-        generator=gen,
+        generator=gen, kb=kb,
     )
     index = finalize_index(raw_levels, top)
     return index, tuple(level_td) + (torch.zeros((), device=dev),)

@@ -169,7 +169,8 @@ def _descend_beam(index: PDASCIndexData, dist: dist_lib.Distance, Q: Tensor,
         else:
             beam = min(beams[l], cand_idx.shape[1])
             d_sel, slot = kops.rank_gathered(
-                Q, lv.points, lv.sq_norm, cand_idx, cand_ok, dist, k=beam)
+                Q, lv.points, lv.sq_norm, cand_idx, cand_ok, dist, k=beam,
+                config=kernel)
             sel_idx = torch.gather(cand_idx, 1, slot.long())
         sel_ok = (d_sel < radii[l]) & (d_sel < BIG / 2)
 
@@ -248,7 +249,7 @@ def _search_beam_batch(index: PDASCIndexData, dist: dist_lib.Distance,
         ok = kref.fold_slot_valid(cand_idx, cand_ok, slot_valid)
         dists, slot = kops.rank_gathered(
             Q, leaf.points, leaf.sq_norm, cand_idx, ok, dist,
-            k=min(k, cand_idx.shape[1]))
+            k=min(k, cand_idx.shape[1]), config=kernel)
         slots = torch.gather(cand_idx, 1, slot.long())
     return assemble_result(index, dists, slots, ok, k=k, leaf_radius=radii[0],
                            leaf_radius_filter=leaf_radius_filter)

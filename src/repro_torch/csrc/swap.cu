@@ -38,7 +38,9 @@
 //   last slot block also walks the valid rows with no slot (they add to S
 //   only). Each block then writes its T rows and its partial S over its
 //   rows, and a third kernel adds the partials, in slot-block order, to
-//   every row of the column: the same sum on every run.
+//   every row of the column: the same sum on every run. The caller may
+//   also ask for fewer slots a block (kb, a launch knob); S then sums in
+//   that split order.
 // - The output tile goes out in 16-byte stores, row by row.
 #include "common.cuh"
 
@@ -262,14 +264,17 @@ swap_finish_kernel(const float* __restrict__ Sp, float* __restrict__ out, int g,
 
 // D[G,g,g], d1/d2[G,g] fp32; n1[G,g] int32; valid[G,g] bool; out[G,k,g];
 // perm[G,g] int32, rc[G,g,4] fp32, off[G,k+1] int32, nv[G] int32 and
-// Sp[G,nz,g] fp32 (nz = ceil(k / slot_block), unused when nz = 1) scratch.
+// Sp[G,nz,g] fp32 (nz = ceil(k / kb), unused when nz = 1) scratch. kb:
+// slots a sweep block, in [1, k]; 0 takes slot_block(g, k).
 extern "C" int swap_launch(const void* D, const void* d1, const void* d2,
                            const void* n1, const void* valid, void* out, void* perm,
                            void* rc, void* off, void* nv, void* Sp, int G, int g,
-                           int k, void* stream) {
+                           int k, int kb, void* stream) {
   cudaGetLastError();
   if (G <= 0 || g <= 0) return 0;
-  const int kb = slot_block(g, k), nz = (k + kb - 1) / kb;
+  if (k < 1 || kb < 0 || kb > k) return (int)cudaErrorInvalidValue;
+  if (kb == 0) kb = slot_block(g, k);
+  const int nz = (k + kb - 1) / kb;
   const size_t smem = smem_bytes(g, kb);
   // the order kernel's slot counts: k <= 14,527 (kmedoids.SWAP_MAX_K)
   const size_t osmem = sizeof(int) * ORDER_WARPS * ((size_t)k + 1);

@@ -19,14 +19,14 @@ import ctypes
 
 import torch
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as _ops
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"swap_launch": [_P] * 11 + [_I] * 3 + [_P]}
+_SIGNATURES = {"swap_launch": [_P] * 11 + [_I] * 4 + [_P]}
 _SMEM_LIMIT = 227 * 1024
 _BN, _STAGES, _ROWS = 64, 4, 16  # swap.cu's column tile and row ring
 _CHUNK = 1024  # rows whose caches a block stages at once
@@ -54,14 +54,27 @@ def swap_smem_bytes(g: int, kb: int) -> int:
     return 4 * (kb * _BN + _STAGES * _ROWS * _BN + _BN) + 20 * rows
 
 
-def swap_geometry(g: int, k: int) -> SwapGeometry:
+def swap_geometry(g: int, k: int, kb: Optional[int] = None) -> SwapGeometry:
     """The sweep's launch geometry for groups of ``g`` points and ``k``
-    slots (``swap.cu``'s ``slot_block``): one block holds every slot where
-    they fit, else 256 a block."""
+    slots. The heuristic (``swap.cu``'s ``slot_block``): one block holds
+    every slot where they fit, else 256 a block. An explicit ``kb`` (slots
+    a block, a launch knob) is used as given; one that cannot run raises
+    ``ValueError`` naming the limit it breaks (outside [1, k], shared
+    memory past 227 KB, more than 65,535 slot blocks); it is never
+    adjusted."""
     if k < 1 or g < 1:
         raise ValueError(f"swap_deltas_cuda: needs g >= 1 and k >= 1, got "
                          f"g={g}, k={k}")
-    kb = k if swap_smem_bytes(g, k) <= _SMEM_LIMIT else _KB
+    if kb is None:
+        kb = k if swap_smem_bytes(g, k) <= _SMEM_LIMIT else _KB
+    elif not 1 <= kb <= k:
+        raise ValueError(f"swap_deltas_cuda: kb={kb} slots a block must lie "
+                         f"in [1, k={k}]")
+    elif swap_smem_bytes(g, kb) > _SMEM_LIMIT:
+        raise ValueError(
+            f"swap_deltas_cuda: kb={kb} slots at g={g} need "
+            f"{swap_smem_bytes(g, kb)} bytes of shared memory a block, over "
+            f"the {_SMEM_LIMIT}-byte (227 KB) limit")
     return SwapGeometry(kb=kb, slot_blocks=-(-k // kb),
                         col_tiles=-(-g // _BN), smem=swap_smem_bytes(g, kb))
 
@@ -72,27 +85,35 @@ def order_smem_bytes(k: int) -> int:
     return 4 * _ORDER_WARPS * (k + 1)
 
 
-def check_swap_shape(g: int, k: int) -> None:
+def check_swap_shape(g: int, k: int, kb: Optional[int] = None
+                     ) -> SwapGeometry:
     """Raise for the ``(g, k)`` the kernels cannot run: ``k < 1``, ``k`` past
     :data:`SWAP_MAX_K` (the order kernel's slot counts outgrow 227 KB), or
-    more slot blocks than a grid axis holds."""
+    more slot blocks than a grid axis holds; and for an explicit ``kb``
+    that :func:`swap_geometry` refuses. Returns the launch geometry."""
     if order_smem_bytes(k) > _SMEM_LIMIT:
         raise ValueError(
             f"swap_deltas_cuda: k={k} medoids exceed the order kernel's "
             f"limit of {SWAP_MAX_K} (its {_ORDER_WARPS} x (k + 1) int32 slot "
             f"counts must fit 227 KB of shared memory); use fewer medoids "
             f"per group")
-    if swap_geometry(g, k).slot_blocks > 65535:
-        raise ValueError(f"swap_deltas_cuda: k={k} needs more than 65,535 "
-                         f"slot blocks")
+    geo = swap_geometry(g, k, kb)
+    if geo.slot_blocks > 65535:
+        raise ValueError(f"swap_deltas_cuda: k={k} at kb={geo.kb} needs "
+                         f"{geo.slot_blocks} slot blocks, more than 65,535")
+    return geo
 
 
 def swap_deltas_cuda(
     D: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor, n1: torch.Tensor,
-    valid: torch.Tensor, k: int,
+    valid: torch.Tensor, k: int, kb: Optional[int] = None,
 ) -> torch.Tensor:
     """``D [G, g, g]`` fp32, ``d1/d2 [G, g]`` fp32, ``n1 [G, g]`` int32,
-    ``valid [G, g]`` bool, all contiguous CUDA. Returns ``[G, k, g]``."""
+    ``valid [G, g]`` bool, all contiguous CUDA. Returns ``[G, k, g]``.
+    ``kb``: slots a block (None: :func:`swap_geometry`'s heuristic). Where
+    it splits the slots (``kb < k``) S sums per slot block, then in
+    slot-block order, so the result may differ from the unsplit sweep's in
+    the last bits; a repeat call at one ``kb`` is bit-identical."""
     G, g, g2 = D.shape
     if g != g2:
         raise ValueError(f"D must be [G, g, g], got {tuple(D.shape)}")
@@ -101,15 +122,15 @@ def swap_deltas_cuda(
         if t.shape != (G, g) or t.dtype != dt:
             raise ValueError("swap_deltas_cuda: caches must be [G, g] "
                              "(d1/d2 fp32, n1 int32, valid bool)")
-    for t in (D, d1, d2, n1, valid):
-        if not (t.is_cuda and t.is_contiguous()):
-            raise ValueError("swap_deltas_cuda takes contiguous CUDA tensors")
     if D.dtype != torch.float32:
         raise ValueError("swap_deltas_cuda takes fp32 D")
     if G > 65535:
         raise ValueError(f"swap_deltas_cuda: G={G} groups exceed a grid axis")
-    check_swap_shape(g, k)
-    nz = swap_geometry(g, k).slot_blocks
+    geo = check_swap_shape(g, k, kb)
+    for t in (D, d1, d2, n1, valid):
+        if not (t.is_cuda and t.is_contiguous()):
+            raise ValueError("swap_deltas_cuda takes contiguous CUDA tensors")
+    nz = geo.slot_blocks
     dev = D.device
     out = torch.empty((G, k, g), device=dev, dtype=torch.float32)
     perm = torch.empty((G, g), device=dev, dtype=torch.int32)
@@ -122,7 +143,7 @@ def swap_deltas_cuda(
     err = lib.swap_launch(
         D.data_ptr(), d1.data_ptr(), d2.data_ptr(), n1.data_ptr(),
         valid.data_ptr(), out.data_ptr(), perm.data_ptr(), rc.data_ptr(),
-        off.data_ptr(), nv.data_ptr(), Sp.data_ptr(), G, g, k,
+        off.data_ptr(), nv.data_ptr(), Sp.data_ptr(), G, g, k, geo.kb,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "swap")

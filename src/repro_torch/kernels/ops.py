@@ -23,10 +23,40 @@ evaluation and ranking step:
 
 Each kernel wrapper counts its launches (:func:`launch_counts`), so a run can
 show that it went through the kernels.
+
+``KernelConfig`` bundles the launch knobs of the CUDA kernels, so callers
+thread one hashable object through the search and build paths. Each knob
+is 0 by default, meaning the kernel's own heuristic for the call's shape
+(``topk.rank_geometry``, ``quantized.scan_geometry``, ``topk.knn_geometry``,
+``kmedoids.swap_geometry``). ``repro``'s Pallas block knobs map onto them:
+
+  ``bm`` / ``bn`` / ``bd`` (pairwise grid)  -> none: ``pairwise.cu``'s
+                                             [128, 128] tile is fixed by its
+                                             ``wgmma`` layout
+  ``bq`` (rank / scan query tile)          -> ``qpb`` queries a block, and
+                                             ``wpq`` warps a query
+  ``bn`` (rank / scan candidate tile)      -> none: a warp takes 32-slot
+                                             tiles
+  ``bq`` / ``bn`` (knn query / DB tiles)   -> ``bq`` (16, 32, 64 or 128
+                                             queries a block) and ``splits``
+                                             (DB splits, one block each)
+  ``bg`` (swap row tile)                   -> ``kb`` slots a block
+
+Resolution per op (:func:`resolve_blocks`), as ``repro``'s:
+
+  explicit call knob  >  non-zero ``KernelConfig`` field  >
+  autotuned winner (``auto=True``, ``kernels/autotune.py`` cache lookup)  >
+  the kernel's heuristic for the call's shape
+
+A tuned winner that cannot run at the call's own shape (its bucket holds
+other shapes) is skipped and counted as a lookup miss. Each (op, shape,
+knobs) resolves against the tuner once per cache generation. The knobs apply to
+CUDA tensors; the plain versions ignore them.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import NamedTuple, Optional
 
@@ -42,12 +72,67 @@ Tensor = torch.Tensor
 
 
 class KernelConfig(NamedTuple):
-    """Knobs of the kernel layer that the port keeps (hashable)."""
+    """Knobs of the kernel layer (hashable). A launch knob at 0 takes the
+    kernel's heuristic."""
 
     row_chunk: int = 1024  # streaming chunk of the plain broadcast forms
+    wpq: int = 0  # rank / scan: warps a query
+    qpb: int = 0  # rank / scan: queries a block
+    bq: int = 0  # knn: queries a block (16, 32, 64 or 128)
+    splits: int = 0  # knn: DB splits, one block a split and query tile
+    kb: int = 0  # swap sweep: slots a block
+    auto: bool = False  # resolve unset knobs from the tuner's cache
+    tuned_gen: int = -1  # autotune generation stamped by the plan compiler
 
 
 DEFAULT = KernelConfig()
+
+# each op's launch knobs, as KernelConfig names them
+OP_KNOBS = {"pairwise": (), "rank": ("wpq", "qpb"), "scan": ("wpq", "qpb"),
+            "knn": ("bq", "splits"), "swap": ("kb",)}
+
+
+def resolve_blocks(op: str, form: Optional[str], dtype: str, shape,
+                   config: Optional[KernelConfig] = None, **explicit) -> dict:
+    """Resolve one op's launch knobs (the precedence chain in the module
+    doc). ``explicit`` carries the per-call knobs (None = unset); ``shape``
+    is the tuner's key shape (``autotune.cache_key``). Returns ``{knob:
+    value or None}``, None meaning the kernel's heuristic."""
+    out = {}
+    for knob in OP_KNOBS[op]:
+        exp = explicit.get(knob)
+        if exp is not None:
+            out[knob] = int(exp)
+        elif config is not None and getattr(config, knob):
+            out[knob] = int(getattr(config, knob))
+        else:
+            out[knob] = None
+    if config is not None and config.auto:
+        from repro_torch.kernels import autotune as _at  # ops <-> tuner cycle
+
+        out = dict(_tuned(op, form, dtype, tuple(shape), tuple(out.items()),
+                          _at.generation()))
+    return out
+
+
+@functools.lru_cache(maxsize=4096)
+def _tuned(op: str, form: Optional[str], dtype: str, shape: tuple,
+           fixed: tuple, generation: int) -> tuple:
+    """``fixed`` (``(knob, value or None)`` pairs) with its unset knobs
+    taken from the tuner's winner where the whole fits ``shape``. Memoised
+    per tuner ``generation`` (a record or a new cache file makes a new
+    one), so a key is looked up and counted once per generation, as
+    ``repro`` looks it up once per trace, and a hot path pays a dict read."""
+    from repro_torch.kernels import autotune as _at
+
+    def merged(tuned: dict) -> tuple:
+        return tuple((k, v if v is not None else tuned.get(k))
+                     for k, v in fixed)
+
+    tuned = _at.lookup(
+        op=op, form=form or "none", dtype=dtype, shape=shape,
+        accept=lambda t: _at.fits(op, dict(merged(t)), shape, form))
+    return fixed if tuned is None else merged(tuned)
 
 
 def resolve_form(distance) -> Optional[str]:
@@ -126,14 +211,17 @@ def pairwise_distance(
             ])
         return dist_lib.pairwise_chunked(distance, X, Y, chunk=row_chunk)
     if _on_cuda(X, Y):
+        resolve_blocks("pairwise", form, "float32",
+                       (X.shape[-2], Y.shape[-2], X.shape[-1]), config)
         return _pw.pairwise_cuda(_f32(X), _f32(Y), form)
     if form in _ref.VPU_FORMS:
         return _ref.pairwise_ref_chunked(X, Y, form, row_chunk)
     return _ref.pairwise_ref(X, Y, form)
 
 
-def knn(Q: Tensor, DB: Tensor, distance="l2", *, k: int = 10
-        ) -> tuple[Tensor, Tensor]:
+def knn(Q: Tensor, DB: Tensor, distance="l2", *, k: int = 10,
+        bq: Optional[int] = None, splits: Optional[int] = None,
+        config: Optional[KernelConfig] = None) -> tuple[Tensor, Tensor]:
     """Fused brute-force k-NN (ascending dists, int32 ids)."""
     form = resolve_form(distance)
     if form is None:
@@ -141,7 +229,10 @@ def knn(Q: Tensor, DB: Tensor, distance="l2", *, k: int = 10
 
         return _ref.topk_smallest(dist_lib.pairwise_chunked(distance, Q, DB), k)
     if _on_cuda(Q, DB):
-        return _tk.knn_cuda(_f32(Q), _f32(DB), k, form)
+        knobs = resolve_blocks(
+            "knn", form, "float32", (Q.shape[0], DB.shape[0], Q.shape[1], k),
+            config, bq=bq, splits=splits)
+        return _tk.knn_cuda(_f32(Q), _f32(DB), k, form, **knobs)
     return _ref.knn_ref(Q, DB, k, form)
 
 
@@ -153,6 +244,9 @@ def rank_candidates(
     *,
     k: int,
     c_sq_norms: Optional[Tensor] = None,
+    wpq: Optional[int] = None,
+    qpb: Optional[int] = None,
+    config: Optional[KernelConfig] = None,
 ) -> tuple[Tensor, Tensor]:
     """Masked ranking of per-query gathered candidates ``C [b, w, d]``.
 
@@ -170,8 +264,10 @@ def rank_candidates(
             cc = (_f32(c_sq_norms).reshape(-1) if c_sq_norms is not None
                   else (points * points).sum(-1))
         idx = torch.arange(b * w, device=C.device, dtype=torch.int32)
+        knobs = resolve_blocks("rank", form, "float32", (b, w, d, k), config,
+                               wpq=wpq, qpb=qpb)
         return _tk.rank_cuda(_f32(Q), points, cc, idx.reshape(b, w),
-                             ok.to(torch.bool).contiguous(), k, form)
+                             ok.to(torch.bool).contiguous(), k, form, **knobs)
     return _ref.rank_ref(Q, C, ok, k, form, cc=c_sq_norms)
 
 
@@ -193,6 +289,9 @@ def rank_gathered(
     *,
     k: int,
     slot_valid: Optional[Tensor] = None,
+    wpq: Optional[int] = None,
+    qpb: Optional[int] = None,
+    config: Optional[KernelConfig] = None,
 ) -> tuple[Tensor, Tensor]:
     """Rank per-query candidates given as *indices* into a shared point
     table (the beam-search layout: ``cand_idx[b]`` indexes rows of
@@ -212,27 +311,35 @@ def rank_gathered(
         if form in _ref.NORM_FORMS:
             cc = (_f32(sq_norms) if sq_norms is not None
                   else (_f32(points) ** 2).sum(-1))
+        knobs = resolve_blocks(
+            "rank", form, "float32",
+            (Q.shape[0], cand_idx.shape[1], Q.shape[1], k), config,
+            wpq=wpq, qpb=qpb)
         return _tk.rank_cuda(
             _f32(Q), _f32(points), cc, cand_idx.to(torch.int32).contiguous(),
-            cand_ok.to(torch.bool).contiguous(), k, form,
+            cand_ok.to(torch.bool).contiguous(), k, form, **knobs,
         )
     return _ref.rank_gathered_ref(Q, points, sq_norms, cand_idx, cand_ok, k, form)
 
 
 def swap_deltas(
     D: Tensor, d1: Tensor, d2: Tensor, n1: Tensor, valid: Tensor, *, k: int,
+    kb: Optional[int] = None, config: Optional[KernelConfig] = None,
 ) -> Tensor:
     """FasterPAM swap-sweep deltas ``[k, g]`` from ``D [g, g]`` and the
     ``[g]`` caches, or batched ``[G, k, g]`` from ``[G, g, g]`` and
     ``[G, g]``. Unmasked: callers mask medoid and invalid columns before
-    taking argmins (``core.kmedoids``)."""
+    taking argmins (``core.kmedoids``). ``kb``: the sweep's slots a block
+    on the card (``repro``'s row tile ``bg``)."""
     if _on_cuda(D, d1, d2, n1, valid):
         batched = D.dim() == 3
+        knobs = resolve_blocks("swap", "none", "float32", (D.shape[-1], k),
+                               config, kb=kb)
         args = [_f32(D), _f32(d1), _f32(d2), n1.to(torch.int32).contiguous(),
                 valid.to(torch.bool).contiguous()]
         if not batched:
             args = [a[None] for a in args]
-        out = _kmk.swap_deltas_cuda(*args, k=k)
+        out = _kmk.swap_deltas_cuda(*args, k=k, **knobs)
         return out if batched else out[0]
     return _ref.swap_deltas_ref(D, d1, d2, n1, valid, k)
 
@@ -249,6 +356,8 @@ def scan_quantized(
     block: int,
     slot_valid: Optional[Tensor] = None,
     code_format: str = "dense",
+    wpq: Optional[int] = None,
+    qpb: Optional[int] = None,
     config: Optional[KernelConfig] = None,
 ) -> tuple[Tensor, Tensor]:
     """Stage 1 of the two-stage search: rank per-query candidates against
@@ -263,8 +372,8 @@ def scan_quantized(
     candidate axis: *approximate* distances, which callers rerank against
     the exact payload. ``slot_valid`` (``bool[n]``, True = live row) is
     folded into ``cand_ok`` first. On CUDA the scan kernel reads the code
-    rows and scales in place: no ``[b, w, dc]`` cube is built. ``config``
-    is accepted for ``repro``'s signature; the scan has no knob yet."""
+    rows and scales in place: no ``[b, w, dc]`` cube is built. ``wpq`` /
+    ``qpb`` (or ``config``'s) set its launch geometry."""
     cand_ok = _ref.fold_slot_valid(cand_idx, cand_ok, slot_valid)
     form = resolve_form(distance)
     if form is None:
@@ -272,10 +381,17 @@ def scan_quantized(
                                  Q.shape[-1])
         return _registry_rank(Q, C, cand_ok, distance, k)
     if _on_cuda(Q, codes, scales, cand_idx, cand_ok):
+        dtype = code_format if code_format != "dense" \
+            else str(codes.dtype).removeprefix("torch.")
+        knobs = resolve_blocks(
+            "scan", form, dtype,
+            (Q.shape[0], cand_idx.shape[1], Q.shape[1], k), config,
+            wpq=wpq, qpb=qpb)
         return _qk.scan_cuda(
             _f32(Q), codes.contiguous(), _f32(scales), block,
             cand_idx.to(torch.int32).contiguous(),
             cand_ok.to(torch.bool).contiguous(), k, form, code_format,
+            **knobs,
         )
     return _ref.scan_gathered_ref(Q, codes, scales, block, cand_idx, cand_ok,
                                   k, form, fmt=code_format)

@@ -6,6 +6,11 @@ over groups, ``[G, m, d] x [G, n, d] -> [G, m, n]`` in one launch (the
 build's ``group_chunk`` slabs). Its plain version is
 ``ref.pairwise_ref``; ``ops.pairwise_distance`` chooses between them by the
 device of its inputs.
+
+The kernel has no launch-time knob: its ``[128, 128]`` output tile is fixed
+by the ``wgmma`` layout (two 64-row warpgroup products a tile, the
+``[128, 136]`` output staging), so the block autotuner's grid for
+``pairwise`` has one member, this launch (``kernels/autotune.py``).
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ distances, as ``jax.lax.top_k`` does.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -35,11 +36,13 @@ _CONTAINERS = {
 }
 
 
-def scan_geometry(b: int, d: int, w: int, k: int) -> topk.RankGeometry:
+def scan_geometry(b: int, d: int, w: int, k: int, wpq: Optional[int] = None,
+                  qpb: Optional[int] = None) -> topk.RankGeometry:
     """The launch of ``scan.cu``: ``rank.cu``'s (the per-query shared
-    memory of the two is one layout, ``csrc/topk.cuh``). Raises only where
-    one warp's state for one query does not fit."""
-    return topk.rank_geometry(b, d, w, k, "scan_cuda")
+    memory of the two is one layout, ``csrc/topk.cuh``), its explicit
+    ``wpq`` / ``qpb`` knobs and their limits included
+    (:func:`topk.rank_geometry`)."""
+    return topk.rank_geometry(b, d, w, k, "scan_cuda", wpq=wpq, qpb=qpb)
 
 
 def load_width(row_bytes: int, address: int, widest: int = 16) -> int:
@@ -63,12 +66,15 @@ def scan_cuda(
     k: int,
     form: str,
     fmt: str = "dense",
+    wpq: Optional[int] = None,
+    qpb: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``Q [b, d]`` fp32, ``codes [n, dc]`` (int8 / fp16 for ``"dense"``,
     int8 for ``"int4"``, uint8 for ``"binary"``), ``scales [nb]`` fp32 (row
     ``r`` takes ``scales[r // block]``), ``cand_idx [b, w]`` int32, ``ok
     [b, w]`` bool, all contiguous on one CUDA device. Returns ``(dists[b, k],
-    slots[b, k] in [0, w))``."""
+    slots[b, k] in [0, w))``. ``wpq`` / ``qpb``: the launch geometry (None:
+    the heuristic, :func:`scan_geometry`)."""
     if form not in FORMS:
         raise ValueError(f"unsupported form {form!r}")
     if fmt not in CODE_FORMATS:
@@ -88,7 +94,7 @@ def scan_cuda(
         raise ValueError(f"k={k} must lie in [1, w={w}]")
     if block < 1 or scales.dim() != 1 or scales.shape[0] < 1:
         raise ValueError("scan_cuda: needs block >= 1 and scales [nb >= 1]")
-    geo = scan_geometry(b, d, w, k)
+    geo = scan_geometry(b, d, w, k, wpq=wpq, qpb=qpb)
     if Q.dtype != torch.float32 or scales.dtype != torch.float32 \
             or cand_idx.dtype != torch.int32 or ok.dtype != torch.bool:
         raise ValueError("scan_cuda: Q/scales fp32, cand_idx int32, ok bool")

@@ -59,26 +59,59 @@ def rank_smem_bytes(d: int, k: int, wpq: int, qpb: int) -> int:
     return 4 * qpb * (_cdiv(d, 4) * 4 + wpq * warp)
 
 
-def rank_geometry(b: int, d: int, w: int, k: int,
-                  what: str = "rank_cuda") -> RankGeometry:
-    """Four warps a query where ``w`` has four 32-slot tiles (else two or
-    one), as many queries as fill 8 warps; fewer queries a block, then
-    fewer warps a query, where the states would not fit. Raises only where
-    one warp's state for one query does not fit. (``scan.cu`` shares the
-    layout, ``csrc/topk.cuh``; ``what`` names the caller.)"""
-    tiles = _cdiv(w, 32)
-    wpq = 4 if tiles >= 4 else 2 if tiles >= 2 else 1
-    qpb = _RANK_MAX_WARPS // wpq
-    while rank_smem_bytes(d, k, wpq, qpb) > _SMEM_LIMIT:
-        if qpb > 1:
-            qpb //= 2
-        elif wpq > 1:
+def rank_geometry(b: int, d: int, w: int, k: int, what: str = "rank_cuda",
+                  wpq: Optional[int] = None, qpb: Optional[int] = None
+                  ) -> RankGeometry:
+    """The heuristic: four warps a query where ``w`` has four 32-slot tiles
+    (else two or one), as many queries as fill 8 warps; fewer queries a
+    block, then fewer warps a query, where the states would not fit. It
+    raises only where one warp's state for one query does not fit.
+    (``scan.cu`` shares the layout, ``csrc/topk.cuh``; ``what`` names the
+    caller.)
+
+    An explicit ``wpq`` or ``qpb`` (a launch knob) is used as given; the
+    one left unset is the heuristic's choice beside it. A geometry that
+    cannot run raises ``ValueError`` naming the limit it breaks (a knob
+    below 1, more than 8 warps a block, or shared memory past 227 KB); it
+    is never adjusted."""
+    for name, v in (("wpq", wpq), ("qpb", qpb)):
+        if v is not None and v < 1:
+            raise ValueError(f"{what}: {name}={v} must be at least 1")
+    if wpq is None and qpb is None:
+        tiles = _cdiv(w, 32)
+        wpq = 4 if tiles >= 4 else 2 if tiles >= 2 else 1
+        qpb = _RANK_MAX_WARPS // wpq
+        while rank_smem_bytes(d, k, wpq, qpb) > _SMEM_LIMIT:
+            if qpb > 1:
+                qpb //= 2
+            elif wpq > 1:
+                wpq //= 2
+            else:
+                raise ValueError(
+                    f"{what}: k={k} at d={d} exceeds shared memory (one "
+                    f"query's state takes {rank_smem_bytes(d, k, 1, 1)} "
+                    f"bytes, a block may use {_SMEM_LIMIT})")
+        return RankGeometry(wpq, qpb, _cdiv(b, qpb))
+    if wpq is None:  # the heuristic's warps a query, beside the given qpb
+        tiles = _cdiv(w, 32)
+        wpq = min(4 if tiles >= 4 else 2 if tiles >= 2 else 1,
+                  max(1, _RANK_MAX_WARPS // qpb))
+        while wpq > 1 and rank_smem_bytes(d, k, wpq, qpb) > _SMEM_LIMIT:
             wpq //= 2
-        else:
-            raise ValueError(
-                f"{what}: k={k} at d={d} exceeds shared memory (one query's "
-                f"state takes {rank_smem_bytes(d, k, 1, 1)} bytes, a block "
-                f"may use {_SMEM_LIMIT})")
+    elif qpb is None:  # as many queries as fill 8 warps, where they fit
+        qpb = max(1, _RANK_MAX_WARPS // wpq)
+        while qpb > 1 and rank_smem_bytes(d, k, wpq, qpb) > _SMEM_LIMIT:
+            qpb //= 2
+    if wpq * qpb > _RANK_MAX_WARPS:
+        raise ValueError(
+            f"{what}: wpq*qpb = {wpq}*{qpb} warps exceed a block's "
+            f"{_RANK_MAX_WARPS} warps ({_RANK_THREADS} threads)")
+    smem = rank_smem_bytes(d, k, wpq, qpb)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"{what}: wpq={wpq}, qpb={qpb} at d={d}, k={k} need {smem} bytes "
+            f"of shared memory a block, over the {_SMEM_LIMIT}-byte (227 KB) "
+            f"limit")
     return RankGeometry(wpq, qpb, _cdiv(b, qpb))
 
 
@@ -111,10 +144,13 @@ def rank_cuda(
     ok: torch.Tensor,
     k: int,
     form: str,
+    wpq: Optional[int] = None,
+    qpb: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``Q [b, d]`` fp32, ``points [n, d]`` fp32, ``sq_norm [n]`` fp32 (norm
     forms), ``cand_idx [b, w]`` int32, ``ok [b, w]`` bool. Returns
-    ``(dists[b, k], slots[b, k] in [0, w))``."""
+    ``(dists[b, k], slots[b, k] in [0, w))``. ``wpq`` / ``qpb``: the launch
+    geometry (None: :func:`rank_geometry`'s heuristic)."""
     if form not in FORMS:
         raise ValueError(f"unsupported form {form!r}")
     b, d = Q.shape
@@ -124,7 +160,7 @@ def rank_cuda(
     w = cand_idx.shape[1]
     if not 1 <= k <= w:
         raise ValueError(f"k={k} must lie in [1, w={w}]")
-    geo = rank_geometry(b, d, w, k)
+    geo = rank_geometry(b, d, w, k, wpq=wpq, qpb=qpb)
     if Q.dtype != torch.float32 or points.dtype != torch.float32 \
             or cand_idx.dtype != torch.int32 or ok.dtype != torch.bool:
         raise ValueError("rank_cuda: Q/points fp32, cand_idx int32, ok bool")
@@ -190,7 +226,8 @@ def knn_max_k() -> int:
 
 
 def knn_geometry(nq: int, n: int, d: int, k: int, form: str,
-                 sms: int = H100_SMS) -> KnnGeometry:
+                 sms: int = H100_SMS, bq: Optional[int] = None,
+                 splits: Optional[int] = None) -> KnnGeometry:
     """The launch of ``knn.cu``. The wgmma route where a query tile fits
     (k <= 1024): the smallest tile that covers ``nq`` among those that fit
     (else the largest that fits). Else the streaming route, which takes any
@@ -198,7 +235,16 @@ def knn_geometry(nq: int, n: int, d: int, k: int, form: str,
     memory, else the smallest tile with its states in device memory. Both
     take as many DB splits as fill one wave of one block per SM with the
     query tiles (long splits amortise the merges of their first tiles; one
-    block a split and query tile). Raises only past :func:`knn_max_k`."""
+    block a split and query tile). Raises only past :func:`knn_max_k`.
+
+    An explicit ``bq`` or ``splits`` (a launch knob) is used as given; the
+    route stays the heuristic's, and an unset knob is the heuristic's
+    choice beside the other. A geometry that cannot run raises
+    ``ValueError`` naming the limit it breaks (``bq`` outside the compiled
+    tiles or the route's fitting set; a split left empty, that is
+    ``chunk * (splits - 1) >= n`` with ``chunk`` the 128-row multiple that
+    covers ``n / splits``; more than 65,535 splits); it is never
+    adjusted."""
     if knn_merge_smem_bytes(k) > _SMEM_LIMIT:
         raise ValueError(f"knn_cuda takes k <= {knn_max_k()} (the per-query "
                          f"merge of the split lists in shared memory), got "
@@ -212,21 +258,45 @@ def knn_geometry(nq: int, n: int, d: int, k: int, form: str,
                 if knn_stream_smem_bytes(b, k, form) <= _SMEM_LIMIT]
         if not fits:
             fits, shared = [_KNN_TILES[0]], False
-    bq = next((b for b in fits if b >= nq), fits[-1])
-    splits = max(1, min(sms // max(1, _cdiv(nq, bq)),
-                        _cdiv(n, _KNN_MIN_SPLIT), 65535))
+    if bq is None:
+        bq = next((b for b in fits if b >= nq), fits[-1])
+    elif bq not in _KNN_TILES:
+        raise ValueError(f"knn_cuda: bq={bq} is not one of knn.cu's compiled "
+                         f"query tiles {_KNN_TILES}")
+    elif bq not in fits:
+        raise ValueError(
+            f"knn_cuda: bq={bq} does not fit the {route} route at d={d}, "
+            f"k={k} ({form}): the tiles whose shared memory fits 227 KB "
+            f"there are {tuple(fits)}")
+    if splits is None:
+        splits = max(1, min(sms // max(1, _cdiv(nq, bq)),
+                            _cdiv(n, _KNN_MIN_SPLIT), 65535))
+        chunk = _cdiv(_cdiv(n, splits), _KNN_TN) * _KNN_TN
+        return KnnGeometry(bq, chunk, _cdiv(n, chunk), route, shared)
+    if splits < 1:
+        raise ValueError(f"knn_cuda: splits={splits} must be at least 1")
+    if splits > 65535:
+        raise ValueError(f"knn_cuda: splits={splits} exceed 65,535 splits "
+                         f"(a grid axis)")
     chunk = _cdiv(_cdiv(n, splits), _KNN_TN) * _KNN_TN
-    return KnnGeometry(bq, chunk, _cdiv(n, chunk), route, shared)
+    if chunk * (splits - 1) >= n:
+        raise ValueError(
+            f"knn_cuda: splits={splits} over n={n} DB rows leave a split "
+            f"empty: chunk * (splits - 1) = {chunk} * {splits - 1} >= n "
+            f"(chunk, a multiple of {_KNN_TN} rows, covers n / splits)")
+    return KnnGeometry(bq, chunk, splits, route, shared)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
+def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str,
+             bq: Optional[int] = None, splits: Optional[int] = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``Q [q, d]``, ``DB [n, d]`` fp32 CUDA. Returns ``(dists[q, k],
-    ids[q, k] int32)``."""
+    ids[q, k] int32)``. ``bq`` / ``splits``: the launch geometry (None:
+    :func:`knn_geometry`'s heuristic)."""
     if form not in FORMS:
         raise ValueError(f"unsupported form {form!r}")
     nq, d = Q.shape
@@ -238,8 +308,10 @@ def knn_cuda(Q: torch.Tensor, DB: torch.Tensor, k: int, form: str
     if Q.dtype != torch.float32 or DB.dtype != torch.float32:
         raise ValueError("knn_cuda takes fp32 tensors")
     _check_cuda(Q, DB)
-    geo = knn_geometry(nq, n, d, k, form,
-                       torch.cuda.get_device_properties(Q.device).multi_processor_count)
+    geo = knn_geometry(
+        nq, n, d, k, form,
+        torch.cuda.get_device_properties(Q.device).multi_processor_count,
+        bq=bq, splits=splits)
     chunk, splits = geo.chunk, geo.splits
     norms = form in NORM_FORMS
     dev = Q.device

@@ -41,9 +41,11 @@ the device and moves the exact payload into a simulated object store
 ``--remote-cache-granules`` and ``--remote-prefetch-workers`` prefetch
 threads.
 
-Not ported yet: ``repro``'s Pallas block knobs ``--bm/--bn/--bd/--bq`` are
-absent (the port's ``KernelConfig`` has ``row_chunk`` only; ``--row-chunk``
-stays).
+Kernel knobs: ``--wpq/--qpb`` (the rank and scan kernels' warps a query and
+queries a block) and ``--bq/--splits`` (the knn kernel's query tile and DB
+splits), each 0 for the kernel's own heuristic, and ``--row-chunk`` go to
+the search as one ``KernelConfig`` (the port's counterparts of ``repro``'s
+``--bm/--bn/--bd/--bq``; see ``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -162,9 +164,20 @@ def _parse(argv=None):
                    help="render a live terminal dashboard (QPS, latency, "
                         "recall estimate, SLO budget, replica health) "
                         "while serving")
-    # The kernel layer's knob (forwarded as a KernelConfig to the search).
-    p.add_argument("--row-chunk", type=int,
-                   default=KernelConfig().row_chunk)
+    # The kernel layer's knobs (forwarded as a KernelConfig to the search;
+    # 0 = the kernel's heuristic for the call's shape).
+    kd = KernelConfig()
+    p.add_argument("--wpq", type=int, default=kd.wpq,
+                   help="rank / scan kernels: warps a query (0 = heuristic)")
+    p.add_argument("--qpb", type=int, default=kd.qpb,
+                   help="rank / scan kernels: queries a block "
+                        "(0 = heuristic)")
+    p.add_argument("--bq", type=int, default=kd.bq,
+                   help="knn kernel: queries a block, 16/32/64/128 "
+                        "(0 = heuristic)")
+    p.add_argument("--splits", type=int, default=kd.splits,
+                   help="knn kernel: DB splits (0 = heuristic)")
+    p.add_argument("--row-chunk", type=int, default=kd.row_chunk)
     return p.parse_args(argv)
 
 
@@ -299,7 +312,8 @@ def main(argv=None):
           f"({args.distance}, gl={args.gl})", flush=True)
     try:
         idx = _build(args, train)
-        kernel = KernelConfig(row_chunk=args.row_chunk)
+        kernel = KernelConfig(wpq=args.wpq, qpb=args.qpb, bq=args.bq,
+                              splits=args.splits, row_chunk=args.row_chunk)
         if args.replicas > 1:
             _serve_replicated(args, idx, kernel, train, test)
         else:

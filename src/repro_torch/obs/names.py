@@ -122,8 +122,7 @@ ONLINE_DELTA_FILL = "online_delta_fill_ratio"
 ONLINE_TOMBSTONES = "online_tombstones_count"
 
 # --------------------------------------------------------------------------
-# autotune — the block-size winner cache (kernels/autotune.py; not yet
-# ported, so the port does not emit these yet)
+# autotune — the launch-geometry winner cache (kernels/autotune.py)
 # --------------------------------------------------------------------------
 AUTOTUNE_HITS = "autotune_lookup_hits_total"
 AUTOTUNE_MISSES = "autotune_lookup_misses_total"

@@ -34,6 +34,11 @@ so a plan held across a write never serves without its delta leg. An
 epoch swap is a new index object: a plan bound to the old one keeps
 serving the old epoch.
 
+A plan whose query asks for tuned kernel knobs (``KernelConfig(auto=True)``)
+binds the autotuner's generation too (``Capabilities.tuned_gen``, stamped
+into the kernel config it runs): a retune re-plans it, and plans of other
+queries are untouched.
+
 ``plan_stats()`` counts, per pipeline, the plans compiled, the plan-cache
 hits, the re-plans of stale plans and the executions; the same events go
 to the ``repro_torch.obs`` registry under ``repro``'s series, and an
@@ -53,6 +58,7 @@ from repro_torch import obs
 from repro_torch.core import distances as dist_lib
 from repro_torch.core import nsa
 from repro_torch.core.distances import BIG
+from repro_torch.kernels import autotune as _autotune
 from repro_torch.obs import names as mnames
 from repro_torch.query.spec import Query, validate_query_batch
 
@@ -105,9 +111,13 @@ class Capabilities(NamedTuple):
     remote: bool  # exact payload behind a remote store (fetch = network op)
     delta_dirty: bool  # active delta entries -> the delta scan + merge leg
     tombstones_dirty: bool  # dead slots -> the slot_valid mask
+    tuned_gen: int = -1  # autotune generation (auto=True kernels), else -1
 
 
-def capabilities(index) -> Capabilities:
+def capabilities(index, kernel=None) -> Capabilities:
+    """The index's fingerprint; with an ``auto=True`` ``kernel`` config it
+    also binds the autotuner's generation (-1 otherwise, so a retune
+    leaves other plans alone)."""
     return Capabilities(
         epoch=index.epoch, n_levels=len(index.data.levels),
         device=str(index.device),
@@ -118,7 +128,19 @@ def capabilities(index) -> Capabilities:
         delta_dirty=bool(index.delta is not None and index.delta.n_active),
         tombstones_dirty=bool(index.tombstones is not None
                               and index.tombstones.count),
+        tuned_gen=(_autotune.generation()
+                   if kernel is not None and kernel.auto else -1),
     )
+
+
+def _stamped_kernel(kernel, gen: Optional[int] = None):
+    """Stamp an ``auto=True`` kernel config with the tuner generation, so
+    the config a plan runs names the winners it resolves against; other
+    configs pass through untouched."""
+    if kernel is None or not kernel.auto:
+        return kernel
+    return kernel._replace(
+        tuned_gen=_autotune.generation() if gen is None else gen)
 
 
 def _resolve_pipeline(query: Query, caps: Capabilities) -> str:
@@ -162,10 +184,11 @@ class SearchPlan:
     caps: Capabilities
     pipeline: str
     radius: object  # resolved: query.radius or the index default
+    kernel: object = None  # query.kernel, generation-stamped when auto
 
     def __call__(self, queries) -> nsa.SearchResult:
         idx = self.index
-        if capabilities(idx) != self.caps:
+        if capabilities(idx, self.query.kernel) != self.caps:
             # the index changed in place under this plan: re-plan (a
             # conflict with the new capabilities raises as plan() would)
             _STATS[self.pipeline][STALENESS_REPLAN] += 1
@@ -193,21 +216,21 @@ class SearchPlan:
                 idx.data, idx.store, Q, dist=idx.distance, k=q.k,
                 r=self.radius, beam=q.beam, max_children=idx.max_children,
                 rerank_width=q.rerank_width, exact_rerank=q.exact_rerank,
-                leaf_radius_filter=q.leaf_radius_filter, kernel=q.kernel,
+                leaf_radius_filter=q.leaf_radius_filter, kernel=self.kernel,
                 slot_valid=slot_valid,
             )
         elif self.pipeline == "dense":
             res = nsa.search_dense(
                 idx.data, Q, dist=idx.distance, k=q.k, r=self.radius,
                 leaf_radius_filter=q.leaf_radius_filter,
-                with_stats=q.with_stats, kernel=q.kernel,
+                with_stats=q.with_stats, kernel=self.kernel,
                 slot_valid=slot_valid,
             )
         elif self.pipeline == "beam":
             res = nsa.search_beam(
                 idx.data, Q, dist=idx.distance, k=q.k, r=self.radius,
                 beam=q.beam, max_children=idx.max_children,
-                leaf_radius_filter=q.leaf_radius_filter, kernel=q.kernel,
+                leaf_radius_filter=q.leaf_radius_filter, kernel=self.kernel,
                 slot_valid=slot_valid,
             )
         else:  # beam_vmap: the seed baseline (clean tiers, by plan)
@@ -227,7 +250,7 @@ class SearchPlan:
         from repro_torch.online import delta as delta_lib
 
         idx, q = self.index, self.query
-        scan = idx.delta.scan(Q, idx.distance, k=q.k, kernel=q.kernel)
+        scan = idx.delta.scan(Q, idx.distance, k=q.k, kernel=self.kernel)
         sd, si = scan.dists, scan.ids
         if q.leaf_radius_filter:
             # the resident ranking's leaf radius rule, so a point filters
@@ -283,7 +306,7 @@ class SearchPlan:
                     "+ merge_topk into the result" if self.caps.delta_dirty
                     else "none (delta buffer empty)"),
             ),
-            kernel=q.kernel._asdict() if q.kernel is not None else None,
+            kernel=self.kernel._asdict() if self.kernel is not None else None,
             index=dict(
                 n_points=getattr(self.index, "n_points", None),
                 code_format=getattr(
@@ -314,13 +337,14 @@ class SearchPlan:
 def compile_plan(index, query: Query) -> SearchPlan:
     """Bind ``query`` to ``index``. Callers usually go through
     ``PDASCIndex.plan`` (the cached surface)."""
-    caps = capabilities(index)
+    caps = capabilities(index, query.kernel)
     pipeline = _resolve_pipeline(query, caps)
     radius = query.radius if query.radius is not None else index.default_radius
     _STATS[pipeline]["compiles"] += 1
     obs.counter(mnames.PLAN_COMPILES, pipeline=pipeline).inc()
     return SearchPlan(index=index, query=query, caps=caps, pipeline=pipeline,
-                      radius=radius)
+                      radius=radius,
+                      kernel=_stamped_kernel(query.kernel, caps.tuned_gen))
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +377,7 @@ class ShardedPlan:
     max_children: Optional[tuple]
     merge: str
     pipeline: str = "sharded"
-    kernel: object = None  # query.kernel
+    kernel: object = None  # query.kernel, generation-stamped when auto
 
     def __call__(self, local_index, Q, *, slot_valid=None):
         from repro_torch.core import distributed as dd
@@ -459,7 +483,7 @@ def compile_sharded_plan(
         query=query, mesh=mesh, db_axes=tuple(db_axes),
         dist=dist_lib.get(dist), radius=radius, shard_mode=shard_mode,
         max_children=tuple(max_children) if max_children is not None
-        else None, merge=merge, kernel=query.kernel,
+        else None, merge=merge, kernel=_stamped_kernel(query.kernel),
     )
     _STATS[plan.pipeline]["compiles"] += 1
     obs.counter(mnames.PLAN_COMPILES, pipeline=plan.pipeline).inc()

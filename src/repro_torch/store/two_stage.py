@@ -179,7 +179,7 @@ def search_two_stage(
     with obs.span("rerank", kind="device", survivors=R):
         dists, slot2 = kops.rank_candidates(
             Qb, torch.from_numpy(C).to(Qb.device), surv_ok, dist,
-            k=min(k, R))
+            k=min(k, R), config=kernel)
         if tracing:
             _settle(dists)
     slots = torch.gather(surv_idx, 1, slot2.long())
