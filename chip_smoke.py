@@ -201,7 +201,25 @@ result line):
    ``n_neighbors=15``, ``iters=5``; 200 held-out queries (of its 1,000)
    with ``n_seeds=24``, ``max_steps=40``: build s, us a query, recall@10
    against ``exact_knn``; the card's graph equal to the CPU's on integer
-   data. Then the script's whole time.
+   data.
+13. (l) The recsys family at full width (``config()`` of wide-deep,
+   xdeepfm, din and autoint; weights from seeded CUDA generators): each
+   at ``serve_p99`` (batch 512; no kernel of the port launches in the
+   ``recsys-serve`` window), logits finite and the card equal to the
+   port's CPU on 64 rows; ``retrieval_cand`` through ``retrieval_step``
+   (one user against 1,000,000 x 64 candidates, k = 100: one launch of
+   knn.cu's dot form an arch in the ``recsys-retrieval`` window), held to
+   ``knn_ref``, its kernel ms by graph replay beside ``knn_ref`` and
+   ``torch.topk(u @ C.T, 100)`` (the knn row's ``retrieval`` entry of the
+   kernels line); ``python -m repro_torch.launch.train --arch wide-deep
+   --batch 65536 --steps 5`` (loss finite, ms a step); din's ``--ckpt``
+   restart at batch 65,536 under ``--deterministic`` (6 steps against 3
+   and 3 resumed: every array of the last checkpoint bit-equal). The
+   trainers' printed launch counts are the ``recsys-train`` window. (g)
+   also runs ``retrieval_step`` over its 4 ranks (din user, each rank its
+   250,000 candidate rows, the butterfly over "data"; ``dist-retrieval``),
+   held to one process's answer and to ``knn_ref``. Then the script's
+   whole time.
 
 Tolerance rule (as in tests/test_torch_*.py): fp32 results agree within
 rtol = 1e-5 and atol = 1e-5 * max(1, max|ref|); l2 distances are compared
@@ -227,6 +245,7 @@ import tempfile
 import threading
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -314,11 +333,17 @@ WINDOW_KERNELS = {
     "dist-truth": ("knn",),  # exact_knn_sharded
     "dist-deleted": ("rank",),  # the beam plan under slot_valid
     "dist-scan": ("scan",),  # scan_quantized_sharded
+    "dist-retrieval": ("knn",),  # retrieval_step over the 4 ranks' blocks
     # (h)
     "remote-build": ("pairwise",),  # build_streaming's k-means relabels
     "remote-search": ("scan", "rank"),  # two-stage over the remote tier
     # (j): the tuned rebuild, its auto plan and the tuned exact k-NN
     "autotune": ("pairwise", "swap_deltas", "rank", "knn"),
+    # (l): the recsys family; its gathers, einsums and MLPs are library
+    # calls, its retrieval top-k is knn.cu's dot form
+    "recsys-serve": (),  # the four serve_p99 forwards
+    "recsys-retrieval": ("knn",),  # retrieval_step, 1M candidates each
+    "recsys-train": (),  # the trainer subprocesses' own counts, summed
 }
 SYMBOLS = {  # each kernel's __global__ functions
     "pairwise": ("pairwise_kernel",), "rank": ("rank_kernel",),
@@ -370,6 +395,12 @@ TUNE_REPS = 5  # timed calls a candidate (median), after one warmup
 TUNE_TURNS = 10  # (j): search calls of each plan, default and auto in turns
 NND_TRAIN, NND_QUERIES = 4000, 200  # (k): bench_recall.py's train[:4000];
 # 200 of its 1,000 queries (the script's time)
+RECSYS_ARCHS = ("wide-deep", "xdeepfm", "din", "autoint")  # (l), full width
+RECSYS_CPU_ROWS = 64  # serve rows the port's CPU forward checks
+RECSYS_TRAIN = ("wide-deep", 5)  # (l): arch, steps at train_batch's batch
+RECSYS_RESTART = ("din", 6)  # (l): arch, steps; interrupted at half
+RETRIEVAL_ARCH = "din"  # (g): the user tower of the sharded retrieval
+N_RETRIEVAL = 1_000_000  # RECSYS_SHAPES["retrieval_cand"]'s candidates
 
 
 class CheckFailed(RuntimeError):
@@ -2921,7 +2952,7 @@ def phase_quickstart() -> dict:
 
 
 def rank_distributed(rank: int, world: int, *, work: str, radius: float,
-                     dead: np.ndarray) -> dict:
+                     dead: np.ndarray, retrieval_seed: int) -> dict:
     """One rank of phase (g), run by ``launch.ranks.run_ranks`` in its own
     process (a ``gloo`` group; the rank's index and kernels on the card).
     Each window zeroes the rank's launch counts just before its work and
@@ -2934,6 +2965,7 @@ def rank_distributed(rank: int, world: int, *, work: str, radius: float,
     from repro_torch.core import nsa
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recsys as rec
     from repro_torch.query import Query, compile_sharded_plan
     from repro_torch.store import LeafStore
 
@@ -3039,7 +3071,52 @@ def rank_distributed(rank: int, world: int, *, work: str, radius: float,
     ok = torch.from_numpy(np.load(os.path.join(work, "dist_ok.npy"))).cuda()
     keep("scan", window("dist-scan", lambda: dd.scan_quantized_sharded(
         codes_l, scales_l, Qc, ci, ok, mesh, k=10, block=STORE_BLOCK)))
+
+    # the recsys retrieval over the same ranks: each takes its row block of
+    # the candidates, the lists merge over "data" (the butterfly)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, params, user = retrieval_model(retrieval_seed)
+    cand = retrieval_candidates(retrieval_seed)
+    torch.cuda.synchronize()
+    out["secs"]["retrieval-setup"] = time.perf_counter() - t0
+    with torch.no_grad():
+        keep("retrieval", window("dist-retrieval", lambda: rec.retrieval_step(
+            params, user, cand, cfg, mesh, k=100, cand_axes=("data",))))
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        rec.retrieval_step(params, user, cand, cfg, mesh, k=100,
+                           cand_axes=("data",))
+        torch.cuda.synchronize()
+        out["secs"]["retrieval-2nd"] = time.perf_counter() - t0
     return out
+
+
+def retrieval_model(seed: int):
+    """(g)'s recsys user: ``RETRIEVAL_ARCH`` at full width, weights from a
+    CUDA generator of ``seed`` (every rank and the parent draw the same),
+    and one user's batch."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batch
+    from repro_torch.data.pipeline import place
+    from repro_torch.models import recsys as rec
+
+    cfg = get_arch(RETRIEVAL_ARCH).config_fn()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = rec.init_params(cfg, gen, device="cuda")
+    return cfg, params, place(recsys_batch(1, 1, cfg, seed=seed), "cuda")
+
+
+def retrieval_candidates(seed: int):
+    """``N_RETRIEVAL`` x 64 candidates drawn on the card from a CUDA
+    generator of ``seed``: (g)'s ranks and parent and (l) each make
+    theirs there, as a retrieval server holds them, with no host copy."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((N_RETRIEVAL, 64), generator=gen, device="cuda")
 
 
 def phase_distributed(work: str) -> dict:
@@ -3103,7 +3180,8 @@ def phase_distributed(work: str) -> dict:
     t0 = time.perf_counter()
     outs = run_ranks(f"{os.path.abspath(__file__)}:rank_distributed",
                      DIST_RANKS, workdir=work,
-                     kwargs=dict(work=work, radius=radius, dead=dead),
+                     kwargs=dict(work=work, radius=radius, dead=dead,
+                                 retrieval_seed=0),
                      timeout=900)
     wall = time.perf_counter() - t0
     # every window launched its kernels in every rank
@@ -3143,6 +3221,25 @@ def phase_distributed(work: str) -> dict:
     require(not dead_hit, f"deleted ids returned: {sorted(dead_hit)[:10]}")
     sd, si = res["scan"]
     err_scan = topk_agree(sd, si, d1.cpu().numpy(), g1.cpu().numpy(), sd)
+    # the sharded retrieval against one process's retrieval_step
+    from repro_torch.kernels import ref
+    from repro_torch.models import recsys as rec
+
+    t0 = time.perf_counter()
+    cfg, params, user = retrieval_model(0)
+    cand_c = retrieval_candidates(0)
+    with torch.no_grad():
+        u = rec.user_vector(params, user, cfg)
+        want_s, want_i = rec.retrieval_step(params, user, cand_c, cfg, k=100)
+    rs, ri = res["retrieval"]
+    again = -(cand_c[torch.from_numpy(ri[0]).long().cuda()] @ u[0])[None]
+    err_retr = topk_agree(-rs, ri, -want_s.cpu().numpy(),
+                          want_i.cpu().numpy(), again.cpu().numpy())
+    rd_ref, ri_ref = ref.knn_ref(u, cand_c, 100, "dot")
+    topk_agree(-rs, ri, rd_ref.cpu().numpy(), ri_ref.cpu().numpy(),
+               again.cpu().numpy())
+    del params, cand_c
+    check_s = sync_s(t0)
     build = [o["secs"]["dist-build"] for o in outs]
     secs = outs[0]["secs"]
     busy = [o["busy"] for o in outs]
@@ -3178,6 +3275,15 @@ def phase_distributed(work: str) -> dict:
     log(f"[dist] {DIST_DELETES} deletes routed by id: no deleted id "
         f"returned; sharded int8 scan (block {STORE_BLOCK}) == one "
         f"process's scan_quantized (max err {err_scan:.3g})")
+    log(f"[dist] recsys retrieval ({RETRIEVAL_ARCH} user, {N_RETRIEVAL:,} x 64 "
+        f"candidates, k=100) over the 4 ranks' row blocks: "
+        f"{secs['dist-retrieval'] * 1e3:.3f} / "
+        f"{secs['retrieval-2nd'] * 1e3:.3f} ms (rank 0, first / second "
+        f"call, the candidates on every rank's card, each ranking its "
+        f"block); == one process's retrieval_step and knn_ref up to "
+        f"near-ties (max err {err_retr:.3g}); set-up: model and candidates "
+        f"{secs['retrieval-setup']:.2f} s on rank 0, the one-process "
+        f"check {check_s:.2f} s")
     return dict(build=build, secs=secs, recalls=recalls, busy=busy,
                 merge_ms=outs[0]["merge_ms"], single_ms=single_ms2)
 
@@ -3582,6 +3688,209 @@ def phase_nndescent(data: np.ndarray, test: np.ndarray) -> dict:
                 recall=rec)
 
 
+# ---------------------------------------------------------------------------
+# (l) the recsys family: serve, 1M-candidate retrieval on knn.cu, training
+# ---------------------------------------------------------------------------
+
+
+def window_sum(name: str, counts: dict) -> None:
+    """Add ``counts`` to the window ``name`` (a window run in parts)."""
+    total = PHASE_LAUNCHES.setdefault(name, dict.fromkeys(KERNELS, 0))
+    for k, v in counts.items():
+        total[k] += v
+
+
+def run_trainer(args: list, timeout: float = 300) -> dict:
+    """``python -m repro_torch.launch.train`` in a subprocess; its loss
+    lines, step ms and the kernel launches it printed."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args],
+        capture_output=True, text=True, timeout=timeout, env=env)
+    wall = time.perf_counter() - t0
+    require(out.returncode == 0, f"launch.train {args} exited "
+            f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    done = [ln for ln in lines if ln.startswith("[train] done:")]
+    last = [ln for ln in lines if " ms a step " in ln]
+    require(done and last, f"launch.train printed no result:\n{out.stdout}")
+    words = done[-1].split()
+    loss, first = float(words[5]), float(words[7].strip("()"))
+    head, _, counts = last[-1].partition("kernel launches ")
+    step_ms = head.split(":")[-1].split("ms a step")[0].strip()
+    return dict(loss=loss, first=first, wall_s=wall,
+                step_ms=None if step_ms == "n/a" else float(step_ms),
+                launches=json.loads(counts), stdout=out.stdout)
+
+
+def phase_recsys(work: str) -> dict:
+    """(l) The recsys family at full width (``config()``, weights from a
+    seed on the card): every arch at ``serve_p99`` (card == the port's CPU
+    on 64 rows), ``retrieval_cand`` through ``retrieval_step`` (knn.cu's
+    dot form at [1, 1M, 64], k = 100, held to ``knn_ref`` and timed beside
+    ``torch.topk(u @ C.T)``), ``launch.train`` at ``train_batch`` and a
+    ``--ckpt`` restart of din under deterministic algorithms, bit-equal to
+    an uninterrupted run. TF32 stays off here and in the trainers."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data import recsys_batch
+    from repro_torch.data.pipeline import place
+    from repro_torch.kernels import ref, topk
+    from repro_torch.models import recsys as rec
+
+    t_phase = time.perf_counter()
+    serve_b = RECSYS_SHAPES["serve_p99"].dims["batch"]
+    n_cand = RECSYS_SHAPES["retrieval_cand"].dims["n_candidates"]
+    k = 100
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    models = {}
+    for i, aid in enumerate(RECSYS_ARCHS):
+        cfg = get_arch(aid).config_fn()
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        models[aid] = (cfg, rec.init_params(cfg, gen, device="cuda"))
+    C = retrieval_candidates(len(RECSYS_ARCHS))
+    require(C.shape[0] == n_cand, "N_RETRIEVAL != retrieval_cand's count")
+    batches = {aid: place(recsys_batch(0, serve_b, cfg, seed=0), "cuda")
+               for aid, (cfg, _) in models.items()}
+    users = {aid: place(recsys_batch(1, 1, cfg, seed=0), "cuda")
+             for aid, (cfg, _) in models.items()}
+    sizes = ", ".join(f"{a} {c.n_params() / 1e6:.1f}M"
+                      for a, (c, _) in models.items())
+    log(f"[recsys] params of {len(models)} archs at full width ({sizes}) "
+        f"and {n_cand:,} candidates made on the card in "
+        f"{sync_s(t0):.1f} s (set-up)")
+
+    # serve_p99: one forward per arch; no kernel of the port runs here
+    start_phase()
+    with torch.no_grad():
+        served = {aid: rec.forward(p, batches[aid], cfg)[0]
+                  for aid, (cfg, p) in models.items()}
+    torch.cuda.synchronize()
+    launched("recsys-serve")
+    out = dict(serve={}, retrieval={}, train={})
+    for aid, (cfg, p) in models.items():
+        logits = served[aid]
+        require(tuple(logits.shape) == (serve_b,)
+                and bool(torch.isfinite(logits).all()),
+                f"{aid}: serve logits not finite or of shape {logits.shape}")
+        cpu_p = {n: v.cpu() for n, v in p.items()}
+        rows = {n: v[:RECSYS_CPU_ROWS].cpu() for n, v in batches[aid].items()}
+        want, _ = rec.forward(cpu_p, rows, cfg)
+        err = values_agree(logits[:RECSYS_CPU_ROWS].cpu().numpy(),
+                           want.numpy())
+        del cpu_p
+        with torch.no_grad():
+            ms = time_ms(lambda: rec.forward(p, batches[aid], cfg))
+        out["serve"][aid] = dict(ms=ms, max_abs_err=err)
+        log(f"[recsys] {aid} serve_p99 (batch {serve_b}): {ms:.4f} ms a "
+            f"forward (CUDA events, 10 calls); logits finite, card == the "
+            f"port's CPU on {RECSYS_CPU_ROWS} rows (max abs err {err:.3g})")
+    with torch.no_grad():
+        cfg, p = models["wide-deep"]
+        profile_breakdown("wide-deep serve_p99 forward",
+                          lambda: rec.forward(p, batches["wide-deep"], cfg))
+
+    # retrieval_cand: retrieval_step's top-k is ops.knn(u, C, "dot")
+    start_phase()
+    with torch.no_grad():
+        got = {aid: rec.retrieval_step(p, users[aid], C, cfg, k=k)
+               for aid, (cfg, p) in models.items()}
+    torch.cuda.synchronize()
+    counts = launched("recsys-retrieval")
+    require(counts["knn"] == len(models),
+            f"retrieval launched knn {counts['knn']} times, not once an arch")
+    nbytes = 4.0 * (n_cand * 64 + 64) + 8.0 * k
+    b_ms, b_by = bound(2.0 * n_cand * 64, nbytes, PEAK_GRAM)
+    for aid, (cfg, p) in models.items():
+        with torch.no_grad():
+            u = rec.user_vector(p, users[aid], cfg)
+        scores, ids = got[aid]
+        kd, ki = topk.knn_cuda(u, C, k, "dot")
+        require(torch.equal(-kd, scores) and torch.equal(ki, ids),
+                f"{aid}: retrieval_step != its knn launch")
+        rd, ri = ref.knn_ref(u, C, k, "dot")
+        again = -(C[ki[0].long()] @ u[0])[None]
+        err = topk_agree(kd.cpu(), ki.cpu(), rd.cpu(), ri.cpu(), again.cpu())
+        require(bool((scores[:, 1:] <= scores[:, :-1]).all()),
+                f"{aid}: scores not descending")
+        out["retrieval"][aid] = dict(
+            ms=kernel_ms(lambda: topk.knn_cuda(u, C, k, "dot")),
+            plain_ms=time_ms(lambda: ref.knn_ref(u, C, k, "dot")),
+            library_ms=time_ms(lambda: torch.topk(u @ C.T, k)),
+            step_ms=time_ms(lambda: rec.retrieval_step(p, users[aid], C,
+                                                       cfg, k=k)),
+            max_abs_err=err)
+        r = out["retrieval"][aid]
+        log(f"[recsys] {aid} retrieval_cand [1, {n_cand}, 64], k={k}: knn "
+            f"dot kernel {r['ms']:.4f} ms (graph replay), plain "
+            f"{r['plain_ms']:.4f} ms, library topk(u @ C.T) "
+            f"{r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"retrieval_step {r['step_ms']:.4f} ms (user tower + knn, CUDA "
+            f"events); held to knn_ref (max abs err {err:.3g})")
+    geo = topk.knn_geometry(1, n_cand, 64, k, "dot")
+    first = out["retrieval"][RECSYS_ARCHS[0]]
+    out["row"] = dict(
+        shape=[1, n_cand, 64, k], form="dot", launches=counts["knn"],
+        ms=first["ms"], plain_ms=first["plain_ms"],
+        library_ms=first["library_ms"], bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max(r["max_abs_err"] for r in out["retrieval"].values()),
+        ms_per_arch={a: r["ms"] for a, r in out["retrieval"].items()},
+        geometry=dict(route=geo.route, bq=geo.bq, splits=geo.splits,
+                      chunk=geo.chunk))
+    log(f"[recsys] knn geometry at [1, {n_cand}, 64, {k}]: "
+        f"{out['row']['geometry']}")
+    del models, batches, users, served, got, C
+    torch.cuda.empty_cache()
+
+    # training: launch.train at train_batch, then din's --ckpt restart
+    batch = RECSYS_SHAPES["train_batch"].dims["batch"]
+    arch, steps = RECSYS_TRAIN
+    tr = run_trainer(["--arch", arch, "--batch", str(batch), "--steps",
+                      str(steps), "--seed", "0"])
+    require(np.isfinite(tr["loss"]) and np.isfinite(tr["first"]),
+            f"{arch} training loss not finite: {tr['first']} -> {tr['loss']}")
+    window_sum("recsys-train", tr["launches"])
+    out["train"][arch] = tr
+    log(f"[recsys] launch.train --arch {arch} --batch {batch} --steps "
+        f"{steps}: loss {tr['first']:.4f} -> {tr['loss']:.4f}, "
+        f"{tr['step_ms']:.3f} ms a step, process {tr['wall_s']:.1f} s")
+    arch, steps = RECSYS_RESTART
+    base = ["--arch", arch, "--batch", str(batch), "--seed", "0",
+            "--deterministic", "--ckpt-every", "100"]
+    whole, half = (os.path.join(work, f"ckpt_{n}") for n in ("whole", "half"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:  # the first two at once
+        f_whole = pool.submit(run_trainer, base + ["--steps", str(steps),
+                                                   "--ckpt", whole])
+        f_half = pool.submit(run_trainer, base + ["--steps", str(steps // 2),
+                                                  "--ckpt", half])
+        runs = [f_whole.result(), f_half.result()]
+    runs.append(run_trainer(base + ["--steps", str(steps), "--ckpt", half]))
+    require("restored checkpoint @ step" in runs[2]["stdout"],
+            "the resumed din run did not restore its checkpoint")
+    for r in runs:
+        window_sum("recsys-train", r["launches"])
+    a, b = (np.load(os.path.join(d, f"step_{steps - 1:09d}", "arrays.npz"))
+            for d in (whole, half))
+    require(sorted(a.files) == sorted(b.files), "restart keys differ")
+    for key in a.files:
+        require(np.array_equal(a[key], b[key]),
+                f"{arch} restart: {key} differs from the uninterrupted run")
+    out["restart_s"] = time.perf_counter() - t0
+    log(f"[recsys] {arch} --ckpt restart at batch {batch} (deterministic "
+        f"algorithms): {steps} steps whole vs {steps // 2} + resumed "
+        f"{steps - steps // 2}: all {len(a.files)} arrays of (params, "
+        f"OptState) bit-equal; loss {runs[0]['first']:.4f} -> "
+        f"{runs[0]['loss']:.4f}; {out['restart_s']:.1f} s (the first two "
+        f"runs share the card, so no step time is kept)")
+    log(f"[recsys] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3637,6 +3946,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
         phase_autotune(main_run, data, work)
     phase_nndescent(data, test)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
+        recsys = phase_recsys(work)
+    next(r for r in rows if r["name"] == "knn")["retrieval"] = recsys["row"]
     log(f"[script] {time.perf_counter() - t_start:.1f} s from its start")
     for r in rows:  # each phase's launches of the kernel, beside the main path's
         r["phase_launches"] = {ph: c[r["name"]] for ph, c in PHASE_LAUNCHES.items()}

@@ -1,0 +1,16 @@
+"""Fault-tolerant checkpointing (atomic, async, elastic) in ``repro``'s
+on-disk format (counterpart of ``repro.checkpoint``)."""
+
+from repro_torch.checkpoint.store import (
+    CheckpointManager,
+    latest_step,
+    load_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = [
+    "CheckpointManager",
+    "latest_step",
+    "load_checkpoint",
+    "save_checkpoint",
+]

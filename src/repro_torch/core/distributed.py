@@ -209,6 +209,7 @@ def build_sharded(
     row_chunk: int = 512,
     group_chunk: int = 8,
     swap_tol: float = 1e-3,
+    kb: int = 0,
     device="cuda",
 ) -> msa.PDASCIndexData:
     """Build this rank's PDASC sub-index.
@@ -217,8 +218,10 @@ def build_sharded(
     ``n`` divisible by the product of the ``db_axes`` sizes; the rank reads
     and uploads only its rows. Its generator is :func:`shard_generator`
     ``(seed, shard)``. ``group_chunk`` bounds the rank's clustering working
-    set at O(group_chunk · gl²). Returns the rank's ``PDASCIndexData`` on
-    ``device`` (CUDA unless ``device="cpu"``)."""
+    set at O(group_chunk · gl²); ``kb`` is the swap sweep kernel's slots a
+    block on the card (``repro``'s ``bg``; 0: its heuristic). Returns the
+    rank's ``PDASCIndexData`` on ``device`` (CUDA unless
+    ``device="cpu"``)."""
     Pn = _axes_size(mesh, db_axes)
     n = data.shape[0]
     if n % Pn:
@@ -230,7 +233,7 @@ def build_sharded(
         n_prototypes=n_prototypes, distance=distance, method=method,
         max_swaps=max_swaps, generator=shard_generator(seed, p),
         row_chunk=row_chunk, group_chunk=group_chunk, swap_tol=swap_tol,
-        device=device)
+        kb=kb, device=device)
     return index
 
 

@@ -110,7 +110,7 @@ def _recover_group_clustering(parent, valid, G, gl, k, level1_pts):
 
 
 def _cluster_affected(idx, gpts, gvld, *, method, max_swaps, swap_tol,
-                      row_chunk, group_chunk, generator):
+                      row_chunk, group_chunk, generator, kb):
     """Re-cluster the affected groups ``[A, gl, d]`` on the index's device
     through the build's ``msa._cluster_groups``, ``group_chunk`` groups a
     slab. Returns numpy ``(medoids [A, k], labels [A, gl])``."""
@@ -122,7 +122,8 @@ def _cluster_affected(idx, gpts, gvld, *, method, max_swaps, swap_tol,
             idx.distance, torch.from_numpy(gpts[lo:lo + chunk]).to(idx.device),
             torch.from_numpy(gvld[lo:lo + chunk]).to(idx.device),
             k=idx.n_prototypes, method=method, max_swaps=max_swaps,
-            swap_tol=swap_tol, row_chunk=row_chunk, generator=generator)
+            swap_tol=swap_tol, row_chunk=row_chunk, generator=generator,
+            kb=kb)
         med.append(_np(m))
         lab.append(_np(l))
     return np.concatenate(med, axis=0), np.concatenate(lab, axis=0)
@@ -132,7 +133,7 @@ def compact_index(idx, *, scope: str = "affected", method: str = "pam",
                   max_swaps: int = 64, swap_tol: float = 1e-3,
                   row_chunk: int = 512, group_chunk: int = 8,
                   generator: Optional[torch.Generator] = None,
-                  store_path: Optional[str] = None):
+                  store_path: Optional[str] = None, kb: int = 0):
     """Compact a mutable index into a fresh epoch (never mutates ``idx``).
 
     Returns a new ``PDASCIndex`` on ``idx``'s device: live points only, no
@@ -143,14 +144,16 @@ def compact_index(idx, *, scope: str = "affected", method: str = "pam",
     delete once no reader holds the old index. A released dense payload
     stays released. ``shuffle=False`` builds a full rebuild without its
     shuffle (the shuffle draws from ``generator``, else
-    :func:`default_generator`)."""
+    :func:`default_generator`). ``kb``: the swap sweep kernel's slots a
+    block on the card (``repro``'s ``bg``; 0: the kernel's heuristic)."""
     from repro_torch.core.index import PDASCIndex  # index imports us
 
     if scope not in ("affected", "full"):
         raise ValueError(f"unknown compaction scope {scope!r}")
     gen = generator if generator is not None else default_generator(idx.epoch)
     kw = dict(method=method, max_swaps=max_swaps, swap_tol=swap_tol,
-              row_chunk=row_chunk, group_chunk=group_chunk, generator=gen)
+              row_chunk=row_chunk, group_chunk=group_chunk, generator=gen,
+              kb=kb)
     if scope == "full":
         data, stats = _rebuild_full(idx, **kw)
         changed = np.ones(data.levels[0].points.shape[0], bool)
@@ -191,7 +194,7 @@ def _rebuild_full(idx, **kw):
 
 
 def _rebuild_affected(idx, *, method, max_swaps, swap_tol, row_chunk,
-                      group_chunk, generator):
+                      group_chunk, generator, kb):
     gl, k = idx.gl, idx.n_prototypes
     dist, dev = idx.distance, idx.device
     leaf = idx.data.levels[0]
@@ -278,7 +281,7 @@ def _rebuild_affected(idx, *, method, max_swaps, swap_tol, row_chunk,
         med_idx, aff_lab = _cluster_affected(
             idx, new_pts[aff], new_valid[aff], method=method,
             max_swaps=max_swaps, swap_tol=swap_tol, row_chunk=row_chunk,
-            group_chunk=group_chunk, generator=generator)
+            group_chunk=group_chunk, generator=generator, kb=kb)
         labels[aff] = aff_lab
         mp = np.take_along_axis(new_pts[aff],
                                 np.clip(med_idx, 0, gl - 1)[:, :, None], axis=1)
@@ -333,7 +336,7 @@ def _rebuild_affected(idx, *, method, max_swaps, swap_tol, row_chunk,
             med_flat, mv_flat, cs_flat, cc_flat, dist=dist, gl=gl, k=k,
             method=method, max_swaps=max_swaps, swap_tol=swap_tol,
             row_chunk=row_chunk, group_chunk=group_chunk, generator=generator,
-            prev_levels=[leaf_dict])
+            prev_levels=[leaf_dict], kb=kb)
     data = msa.finalize_index(raw_levels, top)
 
     # exact leaf TD (each point's distance to its own medoid), one rowwise

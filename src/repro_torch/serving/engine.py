@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch._tree import tree_map
 from repro_torch.obs import names as mnames
 
 # Sentinel pushed by close() to wake a worker blocked on the request queue.
@@ -84,20 +85,6 @@ _SHUTDOWN = object()
 
 # Write kinds are durable once enqueued: never deadline-dropped or skipped.
 _WRITE_KINDS = ("upsert", "delete")
-
-
-def _tree_map(fn, *trees):
-    """``fn`` over the leaves of equally shaped tuples / lists / dicts
-    (the payload and result pytrees the engine stacks and splits)."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (tuple, list)):
-        out = [_tree_map(fn, *xs) for xs in zip(*trees)]
-        if hasattr(first, "_fields"):  # NamedTuple
-            return type(first)(*out)
-        return type(first)(out)
-    return fn(*trees)
 
 
 def _to_host(a):
@@ -531,7 +518,7 @@ class BatchingEngine:
                        else self.extra_handlers[batch[0].kind])
             pad = self.pad_payload if self.pad_payload is not None else batch[0].payload
             rows = [r.payload for r in batch] + [pad] * (self.batch_size - n)
-            stacked = _tree_map(lambda *xs: np.stack(xs), *rows)
+            stacked = tree_map(lambda *xs: np.stack(xs), *rows)
             # Tracing: a batch serves many requests, several of which may
             # be sampled. Each traced request gets queue_wait / batch_wait
             # children (backdated from its own stamps) plus an execute
@@ -558,9 +545,9 @@ class BatchingEngine:
             try:
                 if exec_spans:
                     with obs.activate(exec_spans):
-                        host = _tree_map(_to_host, handler(stacked, n))
+                        host = tree_map(_to_host, handler(stacked, n))
                 else:
-                    host = _tree_map(_to_host, handler(stacked, n))
+                    host = tree_map(_to_host, handler(stacked, n))
             except BaseException as e:  # noqa: BLE001 — a handler failure
                 # fails this batch (each wait() re-raises), never the worker:
                 # a dead worker would silently hang every queued and future
@@ -577,7 +564,7 @@ class BatchingEngine:
             for s in exec_spans:
                 s.end()
             for i, r in enumerate(batch):
-                r._finish(result=_tree_map(lambda a: a[i], host))
+                r._finish(result=tree_map(lambda a: a[i], host))
             self._bump(batches=1, requests=n,
                        occupancy_sum=n / self.batch_size)
             self._finish_batch_metrics(batch, n, t_exec)

@@ -66,6 +66,7 @@ def build_streaming(
     row_chunk: int = 512,
     group_chunk: int = 8,
     swap_tol: float = 1e-3,
+    kb: int = 0,
     cache_granules: int = 256,
     prefetch_workers: int = 2,
     prefix: str = "",
@@ -150,7 +151,7 @@ def build_streaming(
                 torch.full((m,), -1, dtype=torch.int32, device=dev),
                 dist=dist, gl=gl, k=k, method=method, max_swaps=max_swaps,
                 swap_tol=swap_tol, row_chunk=row_chunk,
-                group_chunk=group_chunk, generator=gen,
+                group_chunk=group_chunk, generator=gen, kb=kb,
             )
             # resident tier: the final-layout shard rows, quantised on the
             # device
@@ -216,6 +217,7 @@ def build_streaming(
                 med, mv, cs, cc, dist=dist, gl=gl, k=k, method=method,
                 max_swaps=max_swaps, swap_tol=swap_tol, row_chunk=row_chunk,
                 group_chunk=group_chunk, generator=gen, prev_levels=[leaf],
+                kb=kb,
             )
     data = msa.finalize_index(raw_levels, top)
     lv0 = data.levels[0]
