@@ -97,7 +97,7 @@ result line):
    (a) ``serve-engine``: ``BatchingEngine`` (batch 32, max_wait 4 ms,
    ``launch/serve.py``'s defaults) over ``QueryHandler``; a closed loop of
    the 1,000 queries from 8 threads (q/s, p50, p99, mean occupancy), every
-   answer bit-equal to its row of ``idx.plan(query)(test)``; 2,000
+   answer bit-equal to its row of ``idx.plan(query)(test)``; 1,000
    open-loop Poisson arrivals at 0.6x the closed-loop rate (p50, p99,
    p999); the device busy share of ~1 s of that open loop. (b)
    ``serve-churn``: the engine with ``EpochHandle.apply_writes`` over a
@@ -142,11 +142,11 @@ result line):
 6. The quickstart on the card: euclidean, manhattan, chebyshev and cosine
    with beam; haversine and jaccard with dense.
 7. (f) The serve CLI as subprocesses: ``python -m
-   repro_torch.launch.serve`` at n = 200,000 on the single-engine path
-   (``--churn 64``) and the replicated one (``--replicas 3 --faults
-   wedge:r1@20+8:0.4 --churn 12``), both with tracing, shadow recall and
-   a metrics dump: exit 0, a recall line, ``errors=0`` on the replicated
-   path.
+   repro_torch.launch.serve`` at n = 200,000 (256 queries) on the
+   single-engine path (``--churn 64``) and the replicated one
+   (``--replicas 3 --faults wedge:r1@20+8:0.4 --churn 12``), both with
+   tracing, shadow recall and a metrics dump: exit 0, a recall line,
+   ``errors=0`` on the replicated path.
 8. (g) The distributed deployment: ``dense_embed`` n = 1,024,000 (+ the
    1,000 held-out queries, seed 0) written to ``.npy`` under ``build/``;
    4 rank processes on the one card (``launch.ranks.run_ranks``: ``gloo``
@@ -179,7 +179,7 @@ result line):
    load answer bit-equal; one error window of a fault plan surfaces as
    ``RemoteStoreError`` naming the injected fault, and then passes.
 10. (i) The serve CLI with ``--mode two_stage --store remote`` at n =
-   200,000 (256 queries) on both paths: exit 0, ``errors=0`` replicated.
+   200,000 (128 queries) on both paths: exit 0, ``errors=0`` replicated.
 11. (j) The launch-geometry autotuner, with its cache pointed at a fresh
    file under ``build/``: ``autotune.tune`` for every op at the main
    path's shapes (pairwise's build slab [1024, 256, 256, 100]; rank's
@@ -218,8 +218,30 @@ result line):
    trainers' printed launch counts are the ``recsys-train`` window. (g)
    also runs ``retrieval_step`` over its 4 ranks (din user, each rank its
    250,000 candidate rows, the butterfly over "data"; ``dist-retrieval``),
-   held to one process's answer and to ``knn_ref``. Then the script's
-   whole time.
+   held to one process's answer and to ``knn_ref``.
+14. (m) The transformer family (weights from CUDA generator seeds, bf16
+   compute over fp32 masters). stablelm-1.6b ``config()`` at full width
+   and depth: ``prefill_step`` at prefill_32k's 32,768 tokens (batch 1;
+   one call after a 2,048-token warm-up: ms, peak memory, logits finite);
+   a 4 x 2,048 prompt's cache copied into ``cache_shapes(cfg, 4, 32768)``
+   (decode_32k's length) and 32 greedy ``decode_step``s (ms a step,
+   tokens/s); under fp32, a 2 x 64 prompt's prefill logits and cache
+   equal to 64 decode steps' (the rule); bf16 against fp32 on the same
+   weights, relative L2 of the last logits <= 0.1; the card against the
+   port's CPU on a 2-layer fp32 cut (hidden, prefill logits, one decode
+   step, loss). deepseek-moe-16b ``config()`` at full width cut to 4
+   layers: prefill 2 x 4,096 (C = 960; the dropped share of dispatched
+   slots), 16 greedy decode steps, one ``loss_fn`` backward at 1 x 1,024
+   (every gradient finite), the card against the CPU on a 2-layer fp32
+   cut (hidden, logits, aux, loss); a profile (device busy share, top
+   ops) of one stablelm decode step and one deepseek prefill. Then
+   ``python -m repro_torch.launch.train
+   --arch stablelm-1.6b --seq 4096 --batch 1 --steps 5`` (train_4k's
+   sequence): loss finite, ms a step, peak memory. The windows
+   ``lm-prefill``, ``lm-decode``, ``lm-train``, ``moe-prefill``,
+   ``moe-decode`` and ``moe-train`` must count no launch of the port's
+   kernels (the transformer is library calls). Then the script's whole
+   time.
 
 Tolerance rule (as in tests/test_torch_*.py): fp32 results agree within
 rtol = 1e-5 and atol = 1e-5 * max(1, max|ref|); l2 distances are compared
@@ -344,6 +366,14 @@ WINDOW_KERNELS = {
     "recsys-serve": (),  # the four serve_p99 forwards
     "recsys-retrieval": ("knn",),  # retrieval_step, 1M candidates each
     "recsys-train": (),  # the trainer subprocesses' own counts, summed
+    # (m): the transformer family is library calls: these windows must
+    # count no launch of the port's kernels
+    "lm-prefill": (),  # stablelm-1.6b prefill at 32,768 tokens
+    "lm-decode": (),  # its greedy decode over a 32,768-slot cache
+    "lm-train": (),  # the launch.train subprocess's own counts
+    "moe-prefill": (),  # deepseek-moe-16b prefill, 2 x 4,096
+    "moe-decode": (),  # its greedy decode
+    "moe-train": (),  # one loss_fn backward
 }
 SYMBOLS = {  # each kernel's __global__ functions
     "pairwise": ("pairwise_kernel",), "rank": ("rank_kernel",),
@@ -366,7 +396,10 @@ CHURN = dict(upserts=2048, batch=128, replace=256, delete=1024,
              delete_upserted=256)  # the online phase's write stream
 SERVE_BATCH, SERVE_WAIT_MS = 32, 4.0  # launch/serve.py's defaults
 SERVE_THREADS = 8  # closed-loop submitting threads
-SERVE_OPEN = 2000  # open-loop arrivals of the engine phase
+SERVE_OPEN = 1000  # open-loop arrivals of the engine phase
+# rows of the profiled builds: the profiler's cost grows with the launches
+# (a profiled 1M pam build took 30 s), so the profiles cut depth
+PROFILE_ROWS = dict(pam=200_000, kmeans=50_000)
 OPEN_LOAD = 0.6  # open-loop rate over closed-loop saturation (bench_serve)
 SERVE_CHURN = dict(searches=4096, writes=2560, delete_every=5, noise=0.01,
                    delta_capacity=4096, delta_fill=0.5)  # configs/pdasc.py
@@ -401,6 +434,18 @@ RECSYS_TRAIN = ("wide-deep", 5)  # (l): arch, steps at train_batch's batch
 RECSYS_RESTART = ("din", 6)  # (l): arch, steps; interrupted at half
 RETRIEVAL_ARCH = "din"  # (g): the user tower of the sharded retrieval
 N_RETRIEVAL = 1_000_000  # RECSYS_SHAPES["retrieval_cand"]'s candidates
+LM_ARCH = "stablelm-1.6b"  # (m): full width and depth
+LM_PREFILL_BATCH = 1  # prefill_32k's batch 32 cut to 1 (its cache: 206 GB)
+LM_WARMUP = 2048  # tokens of the prefill warm-up call
+LM_DECODE = (4, 2048, 32)  # decode_32k's batch 128 cut to 4; prompt; steps
+LM_CONSIST = (2, 64)  # fp32 prefill == decode: batch, prompt tokens
+LM_CPU = (2, 16, 2)  # card == the port's CPU: batch, tokens, layers (fp32)
+MOE_ARCH = "deepseek-moe-16b"  # (m): full width
+MOE_LAYERS = 4  # depth 28 cut to 4 (the 28-layer fp32 master is 67.5 GB)
+MOE_PREFILL = (2, 4096, 16)  # batch, prompt tokens, greedy decode steps
+MOE_TRAIN = (1, 1024)  # one loss_fn backward: batch, tokens
+LM_TRAIN = ["--arch", LM_ARCH, "--seq", "4096", "--batch", "1", "--steps",
+            "5", "--seed", "0"]  # train_4k's seq; its batch 256 cut to 1
 
 
 class CheckFailed(RuntimeError):
@@ -1050,19 +1095,21 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_breakdown(label: str, fn) -> dict:
+def profile_breakdown(label: str, fn, wall_ms=None) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and print where the device
-    time went: the busy share of the call's wall time (timed again without
-    the profiler) and the ops that took most device time."""
+    time went: the busy share of the call's wall time (``wall_ms``, of
+    the same call just run without the profiler; timed here when not
+    given) and the ops that took most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    if wall_ms is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     # device activity only: recording every host op as well took the
     # profiled 1M build ~80 s, and a host op's device time repeats its
     # kernels' (same busy time either way on an H100)
@@ -1122,9 +1169,10 @@ def phase_profile(data: np.ndarray, main: dict) -> None:
     plan = main["idx"].plan(Query(k=10))
     main["search_profile"] = profile_breakdown(
         f"search {N_QUERIES} queries, beam 32", lambda: plan(main["Qc"]))
+    n = PROFILE_ROWS["pam"]
     profile_breakdown(
-        f"build n={data.shape[0]}",
-        lambda: PDASCIndex.build(data, gl=256, distance="euclidean",
+        f"build n={n}",
+        lambda: PDASCIndex.build(data[:n], gl=256, distance="euclidean",
                                  radius_quantile=0.35,
                                  group_chunk=GROUP_CHUNK, device="cuda"))
 
@@ -1581,9 +1629,10 @@ def phase_kmeans(data: np.ndarray, test: np.ndarray, main: dict) -> dict:
         f"level TDs all 0; recall@10 beam 32 {rec:.4f} (pam build "
         f"{main['recall']:.4f})")
     del idx, res
+    n = PROFILE_ROWS["kmeans"]
     profile_breakdown(
-        f"k-means build n={N_BIG_GL}",
-        lambda: PDASCIndex.build(data[:N_BIG_GL], gl=256, method="kmeans",
+        f"k-means build n={n}",
+        lambda: PDASCIndex.build(data[:n], gl=256, method="kmeans",
                                  group_chunk=GROUP_CHUNK, device="cuda"))
 
     big = data[:N_BIG_GL]
@@ -1837,7 +1886,7 @@ def phase_online(main: dict, data: np.ndarray, workdir: str) -> dict:
             "affected compaction changed an untouched group's rows")
     share = 1.0 - same_group.mean()
     profile_breakdown("compact(affected)", lambda: idx.compact(
-        scope="affected", group_chunk=GROUP_CHUNK))
+        scope="affected", group_chunk=GROUP_CHUNK), wall_ms=1e3 * aff_s)
     profile_breakdown(f"routing of {CHURN['batch']} upserts",
                       lambda: idx._route_to_leaf(ups[0][1]))
     exact = {}
@@ -2842,7 +2891,7 @@ def phase_serve_two_stage(main: dict, workdir: str) -> dict:
                 on_off=on / off, counts=counts)
 
 
-SERVE_CLI = ["--n", "200000", "--gl", "256", "--queries", "512", "--batch",
+SERVE_CLI = ["--n", "200000", "--gl", "256", "--queries", "256", "--batch",
              "32", "--trace-sample", "8", "--shadow-sample", "16"]
 SERVE_CLI_PATHS = {  # (f): the beam index, with churn
     "single": ["--mode", "beam", "--churn", "64"],
@@ -2853,8 +2902,8 @@ REMOTE_CLI = ["--mode", "two_stage", "--store", "remote", "--store-block",
               str(REMOTE["latency_ms"]), "--remote-cache-granules",
               str(REMOTE["cache_granules"])]
 SERVE_CLI_REMOTE_PATHS = {  # (i): --store remote, half (f)'s queries
-    "remote-single": REMOTE_CLI + ["--queries", "256"],
-    "remote-replicated": REMOTE_CLI + ["--queries", "256", "--replicas", "3",
+    "remote-single": REMOTE_CLI + ["--queries", "128"],
+    "remote-replicated": REMOTE_CLI + ["--queries", "128", "--replicas", "3",
                                        "--faults", "wedge:r1@20+8:0.4"]}
 
 
@@ -3720,8 +3769,10 @@ def run_trainer(args: list, timeout: float = 300) -> dict:
     loss, first = float(words[5]), float(words[7].strip("()"))
     head, _, counts = last[-1].partition("kernel launches ")
     step_ms = head.split(":")[-1].split("ms a step")[0].strip()
+    peak = [ln for ln in lines if ln.startswith("[train] peak device memory")]
     return dict(loss=loss, first=first, wall_s=wall,
                 step_ms=None if step_ms == "n/a" else float(step_ms),
+                peak_gb=float(peak[-1].split()[4]) if peak else None,
                 launches=json.loads(counts), stdout=out.stdout)
 
 
@@ -3891,6 +3942,335 @@ def phase_recsys(work: str) -> dict:
     return out
 
 
+def lm_launched(window: str) -> None:
+    """``launched`` for an (m) window, which must count no launch."""
+    counts = launched(window)
+    require(not any(counts.values()),
+            f"{window}: the transformer launched a kernel of the port: {counts}")
+
+
+def lm_tokens_on(step: int, batch: int, seq: int, vocab: int):
+    """``lm_tokens``' token rows as an int32 tensor on the card."""
+    import torch
+    from repro_torch.data import lm_tokens
+
+    return torch.from_numpy(lm_tokens(step, batch, seq, vocab)["tokens"]).cuda()
+
+
+def lm_cut(params: dict, n_layers: int, device: str) -> dict:
+    """The first ``n_layers`` layers of ``params`` (and every other
+    tensor), copied to ``device``."""
+    out = {k: v.to(device) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: v[:n_layers].to(device)
+                     for k, v in params["layers"].items()}
+    return out
+
+
+def lm_empty_cache(tfm, cfg, batch: int, seq: int, fill: dict = None) -> dict:
+    """A zero KV cache of ``seq`` slots on the card, its first slots copied
+    from a prefill's ``fill``."""
+    import torch
+
+    cache = {n: torch.zeros(s.shape, dtype=s.dtype, device="cuda")
+             for n, s in tfm.cache_shapes(cfg, batch, seq).items()}
+    for n, c in (fill or {}).items():
+        cache[n][:, :, :c.shape[2]] = c
+    return cache
+
+
+def lm_greedy(tfm, params, cache, logits, cfg, start: int, steps: int):
+    """``steps`` greedy decode steps from ``logits`` at position ``start``:
+    the last logits and the tokens (argmax on the card, no host sync)."""
+    import torch
+
+    sh = tfm.ShardingConfig()
+    toks = []
+    for i in range(steps):
+        nxt = logits[:, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(nxt)
+        logits, cache = tfm.decode_step(params, cache, nxt, start + i, cfg, sh)
+    return logits, torch.cat(toks, dim=1)
+
+
+def lm_card_vs_cpu(tfm, params, cfg, tag: str) -> dict:
+    """A ``LM_CPU``-layer fp32 cut of ``cfg`` on the card and on the port's
+    CPU, the same weights and tokens: hidden and prefill logits, one
+    decode step, the loss and its aux, each pair within the rule."""
+    import torch
+
+    B, S, L = LM_CPU
+    cut = dataclasses.replace(cfg, n_layers=L, dtype=torch.float32)
+    sh = tfm.ShardingConfig()
+    toks = lm_tokens_on(7, B, S + 1, cfg.vocab)
+    batch = dict(tokens=toks[:, :S], labels=toks[:, 1:])
+    p_cpu = lm_cut(params, L, "cpu")
+    p_gpu = lm_cut(params, L, "cuda")
+    res = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            r = {"hidden": tfm.forward(p, b["tokens"], cut, sh)[0]}
+            r["prefill"], pc = tfm.prefill_step(p, b["tokens"], cut, sh)
+            cache = {n: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                     for n, s in tfm.cache_shapes(cut, B, S + 1).items()}
+            for n in cache:
+                cache[n][:, :, :S] = pc[n]
+            r["decode"], _ = tfm.decode_step(p, cache, b["labels"][:, -1:], S,
+                                             cut, sh)
+            loss, parts = tfm.loss_fn(p, b, cut, sh)
+            r["loss"], r["aux"] = loss[None], parts["aux"][None]
+        res[dev] = {k: v.cpu().numpy() for k, v in r.items()}
+    errs = {}
+    for k, want in res["cpu"].items():
+        got = res["cuda"][k]
+        if k in ("prefill", "decode"):
+            got, want = got[:, :cfg.vocab], want[:, :cfg.vocab]
+        errs[k] = values_agree(got, want)
+    log(f"[{tag}] card == the port's CPU on a {L}-layer fp32 cut of config() "
+        f"(full width), {B} x {S} tokens: max abs err "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+    return errs
+
+
+def phase_lm() -> dict:
+    """(m) The transformer family on the card, weights from CUDA generator
+    seeds, TF32 off. stablelm-1.6b at full width and depth: prefill at
+    prefill_32k's 32,768 tokens (batch 1), then a 4 x 2,048 prompt's cache
+    in a 32,768-slot cache (decode_32k's length, batch 4) and 32 greedy
+    decode steps; at full width in fp32, prefill == 64 decode steps; bf16
+    against fp32; card == CPU on a 2-layer cut. deepseek-moe-16b at full
+    width, 4 layers: prefill 2 x 4,096 (dropped share of the dispatch), 16
+    greedy decode steps, one loss_fn backward at 1 x 1,024, card == CPU on
+    a 2-layer cut. Then ``launch.train --arch stablelm-1.6b --seq 4096``.
+    Every window counts no launch of the port's kernels."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import value_and_grad
+
+    t_phase = time.perf_counter()
+    sh = tfm.ShardingConfig()
+    out = {}
+    torch.cuda.empty_cache()
+
+    # ---- stablelm-1.6b, full width and depth ------------------------------
+    cfg = get_arch(LM_ARCH).config_fn()
+    V = cfg.vocab
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    log(f"[lm] {cfg.name} config(): {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}, vocab "
+        f"{V} (padded {cfg.vocab_padded}); {cfg.n_params() / 1e9:.3f} B "
+        f"params, {4 * cfg.n_params() / 1e9:.2f} GB fp32 master, made on "
+        f"the card in {sync_s(t0):.1f} s (set-up); compute in bf16")
+
+    S = LM_SHAPES["prefill_32k"].dims["seq_len"]
+    with torch.no_grad():
+        tfm.prefill_step(params, lm_tokens_on(0, LM_PREFILL_BATCH, LM_WARMUP,
+                                              V), cfg, sh)
+        prompt = lm_tokens_on(1, LM_PREFILL_BATCH, S, V)
+        torch.cuda.reset_peak_memory_stats()
+        start_phase()
+        t0 = time.perf_counter()
+        logits, cache = tfm.prefill_step(params, prompt, cfg, sh)
+        prefill_ms = 1e3 * sync_s(t0)
+    lm_launched("lm-prefill")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(tuple(logits.shape) == (LM_PREFILL_BATCH, cfg.vocab_padded)
+            and bool(torch.isfinite(logits[:, :V]).all())
+            and bool(torch.isneginf(logits[:, V:]).all()),
+            "prefill_32k logits not finite, or padded columns not -inf")
+    require(tuple(cache["k"].shape) == (cfg.n_layers, LM_PREFILL_BATCH, S,
+                                        cfg.n_kv_heads, cfg.hd),
+            f"prefill cache of shape {tuple(cache['k'].shape)}")
+    out["prefill"] = dict(ms=prefill_ms, peak_gb=peak, tokens=S,
+                          batch=LM_PREFILL_BATCH)
+    log(f"[lm] prefill_32k ({LM_PREFILL_BATCH} x {S} tokens, after a "
+        f"{LM_WARMUP}-token warm-up): {prefill_ms:.1f} ms (host clock, "
+        f"synchronised), {LM_PREFILL_BATCH * S / prefill_ms * 1e3:.0f} "
+        f"tokens/s; peak memory {peak:.2f} GB (max_memory_allocated); "
+        f"logits finite, padded columns -inf")
+    del logits, cache, prompt
+    torch.cuda.empty_cache()
+
+    Bd, P, steps = LM_DECODE
+    Sd = LM_SHAPES["decode_32k"].dims["seq_len"]
+    with torch.no_grad():
+        logits, pc = tfm.prefill_step(params, lm_tokens_on(2, Bd, P, V), cfg,
+                                      sh)
+        cache = lm_empty_cache(tfm, cfg, Bd, Sd, pc)
+        del pc
+        cache_gb = sum(c.numel() * c.element_size() for c in cache.values()) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        start_phase()
+        t0 = time.perf_counter()
+        logits, gen = lm_greedy(tfm, params, cache, logits, cfg, P, steps)
+        decode_s = sync_s(t0)
+    lm_launched("lm-decode")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(bool(torch.isfinite(logits[:, :V]).all())
+            and bool(((gen >= 0) & (gen < V)).all()),
+            "decode logits not finite or a token out of the vocab")
+    out["decode"] = dict(ms_per_step=1e3 * decode_s / steps,
+                         tokens_per_s=Bd * steps / decode_s, peak_gb=peak,
+                         cache_gb=cache_gb, batch=Bd, cache_seq=Sd)
+    log(f"[lm] decode_32k: a {Bd} x {P} prompt's cache in cache_shapes("
+        f"{Bd}, {Sd}) ({cache_gb:.2f} GB bf16), {steps} greedy steps: "
+        f"{out['decode']['ms_per_step']:.3f} ms a step, "
+        f"{out['decode']['tokens_per_s']:.1f} tokens/s (host clock, "
+        f"synchronised once); peak memory {peak:.2f} GB; logits finite")
+    with torch.no_grad():  # one more step, at the next slot
+        out["decode"]["profile"] = profile_breakdown(
+            f"{cfg.name} decode step (batch {Bd}, {Sd}-slot cache)",
+            lambda: tfm.decode_step(params, cache, gen[:, -1:], P + steps,
+                                    cfg, sh))
+    del cache, logits
+    torch.cuda.empty_cache()
+
+    # prefill == decode at full width in fp32; then bf16 against fp32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    Bc, Pc = LM_CONSIST
+    prompt = lm_tokens_on(3, Bc, Pc, V)
+    with torch.no_grad():
+        lp, cp = tfm.prefill_step(params, prompt, cfg32, sh)
+        cache = lm_empty_cache(tfm, cfg32, Bc, Pc)
+        for t in range(Pc):
+            ld, cache = tfm.decode_step(params, cache, prompt[:, t:t + 1], t,
+                                        cfg32, sh)
+        lb, _ = tfm.prefill_step(params, prompt, cfg, sh)
+    lp, ld, lb = (x[:, :V].double().cpu().numpy() for x in (lp, ld, lb))
+    rel = float(np.linalg.norm(lb - lp) / np.linalg.norm(lp))
+    log(f"[lm] fp32 at full width, {Bc} x {Pc} tokens: prefill's last "
+        f"logits vs {Pc} decode steps' max abs err "
+        f"{float(np.abs(ld - lp).max()):.3g} (max |logit| "
+        f"{float(np.abs(lp).max()):.3g}); bf16 vs fp32 relative L2 of the "
+        f"last logits {rel:.4f} (limit 0.1)")
+    err = values_agree(ld, lp)
+    cerr = max(values_agree(cache[n].cpu().numpy(), cp[n].cpu().numpy())
+               for n in ("k", "v"))
+    require(rel <= 0.1, f"bf16 vs fp32 relative L2 {rel:.4f} > 0.1")
+    out["consistency"] = dict(max_abs_err=err, cache_err=cerr, bf16_rel=rel)
+    del cache, cp
+    out["cpu"] = lm_card_vs_cpu(tfm, params, cfg, "lm")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- deepseek-moe-16b, full width, 4 layers ---------------------------
+    mcfg = dataclasses.replace(get_arch(MOE_ARCH).config_fn(),
+                               n_layers=MOE_LAYERS)
+    moe = mcfg.moe
+    V = mcfg.vocab
+    t0 = time.perf_counter()
+    params = tfm.init_params(mcfg, torch.Generator(device="cuda").manual_seed(1),
+                             device="cuda")
+    log(f"[moe] {mcfg.name} config() cut to {MOE_LAYERS} of 28 layers: d "
+        f"{mcfg.d_model}, {moe.n_experts} routed experts top-{moe.top_k} + "
+        f"{moe.n_shared} shared, d_ff_expert {moe.d_ff_expert}, vocab {V}; "
+        f"{mcfg.n_params() / 1e9:.3f} B params ({4 * mcfg.n_params() / 1e9:.2f}"
+        f" GB fp32), {mcfg.n_active_params() / 1e9:.3f} B active a token, "
+        f"made on the card in {sync_s(t0):.1f} s (set-up)")
+    Bm, Pm, msteps = MOE_PREFILL
+    prompt = lm_tokens_on(4, Bm, Pm, V)
+    C = tfm.capacity(moe, Bm * Pm)
+    with torch.no_grad():
+        tfm.prefill_step(params, prompt[:, :LM_WARMUP], mcfg, sh)
+        torch.cuda.reset_peak_memory_stats()
+        start_phase()
+        t0 = time.perf_counter()
+        logits, pc = tfm.prefill_step(params, prompt, mcfg, sh)
+        prefill_ms = 1e3 * sync_s(t0)
+        lm_launched("moe-prefill")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        require(bool(torch.isfinite(logits[:, :V]).all()),
+                "moe prefill logits not finite")
+        cache = lm_empty_cache(tfm, mcfg, Bm, Pm + msteps, pc)
+        del pc
+        start_phase()
+        t0 = time.perf_counter()
+        last, gen = lm_greedy(tfm, params, cache, logits, mcfg, Pm, msteps)
+        decode_s = sync_s(t0)
+        lm_launched("moe-decode")
+        require(bool(torch.isfinite(last[:, :V]).all()),
+                "moe decode logits not finite")
+        drops = []  # (dropped slots, slots) a layer, from the same routing
+        real = tfm._moe_local
+
+        def spy(x_flat, router_w, *a, **kw):
+            _, _, top_e = tfm.route(x_flat, router_w, moe.top_k)
+            n = torch.bincount(top_e.reshape(-1), minlength=moe.n_experts)
+            drops.append((int(torch.clamp(n - C, min=0).sum()), top_e.numel()))
+            return real(x_flat, router_w, *a, **kw)
+
+        tfm._moe_local = spy
+        try:
+            tfm.prefill_step(params, prompt, mcfg, sh)
+        finally:
+            tfm._moe_local = real
+    dropped = sum(d for d, _ in drops) / sum(n for _, n in drops)
+    out["moe"] = dict(prefill_ms=prefill_ms, peak_gb=peak,
+                      ms_per_step=1e3 * decode_s / msteps,
+                      tokens_per_s=Bm * msteps / decode_s, dropped=dropped,
+                      capacity=C)
+    log(f"[moe] prefill {Bm} x {Pm} (T = {Bm * Pm}, C = {C}): "
+        f"{prefill_ms:.1f} ms, peak memory {peak:.2f} GB; dropped "
+        f"{100 * dropped:.2f}% of the dispatched slots (per layer "
+        f"{[round(100 * d / n, 2) for d, n in drops]}%); {msteps} greedy "
+        f"decode steps (no capacity): {out['moe']['ms_per_step']:.3f} ms a "
+        f"step, {out['moe']['tokens_per_s']:.1f} tokens/s; logits finite")
+    with torch.no_grad():
+        out["moe"]["profile"] = profile_breakdown(
+            f"{mcfg.name} prefill {Bm} x {Pm}",
+            lambda: tfm.prefill_step(params, prompt, mcfg, sh))
+    del cache, logits, last
+
+    Bt, St = MOE_TRAIN
+    toks = lm_tokens_on(5, Bt, St + 1, V)
+    batch = dict(tokens=toks[:, :St], labels=toks[:, 1:])
+    torch.cuda.reset_peak_memory_stats()
+    start_phase()
+    train_ms = []
+    for _ in range(2):  # the first call pays for lazy set-up
+        t0 = time.perf_counter()
+        (loss, parts), grads = value_and_grad(
+            lambda p, b: tfm.loss_fn(p, b, mcfg, sh), params, batch)
+        train_ms.append(1e3 * sync_s(t0))
+        require(np.isfinite(float(loss))
+                and all(bool(torch.isfinite(g).all())
+                        for g in tree_leaves(grads)),
+                "moe loss or a gradient not finite")
+        del grads
+    lm_launched("moe-train")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out["moe"].update(train_ms=train_ms, train_peak_gb=peak, loss=float(loss))
+    log(f"[moe] loss_fn backward at {Bt} x {St}: loss {float(loss):.4f} (nll "
+        f"{float(parts['nll']):.4f}, aux {float(parts['aux']):.4f}), "
+        f"{train_ms[0]:.1f} ms the first call, {train_ms[1]:.1f} ms the "
+        f"second (host clock), peak memory {peak:.2f} GB; every gradient "
+        f"finite")
+    out["moe_cpu"] = lm_card_vs_cpu(tfm, params, mcfg, "moe")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- launch.train at train_4k's sequence -----------------------------
+    tr = run_trainer(LM_TRAIN)
+    require(np.isfinite(tr["loss"]) and np.isfinite(tr["first"])
+            and tr["peak_gb"] is not None,
+            f"{LM_ARCH} training loss not finite ({tr['first']} -> "
+            f"{tr['loss']}) or no peak memory printed")
+    PHASE_LAUNCHES["lm-train"] = tr["launches"]
+    require(not any(tr["launches"].values()),
+            f"lm-train launched a kernel of the port: {tr['launches']}")
+    out["train"] = tr
+    log(f"[lm] launch.train {' '.join(LM_TRAIN)}: loss {tr['first']:.4f} -> "
+        f"{tr['loss']:.4f}, {tr['step_ms']:.1f} ms a step, peak memory "
+        f"{tr['peak_gb']:.2f} GB, process {tr['wall_s']:.1f} s")
+    log(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -3948,6 +4328,7 @@ def main() -> int:
     phase_nndescent(data, test)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
         recsys = phase_recsys(work)
+    phase_lm()
     next(r for r in rows if r["name"] == "knn")["retrieval"] = recsys["row"]
     log(f"[script] {time.perf_counter() - t_start:.1f} s from its start")
     for r in rows:  # each phase's launches of the kernel, beside the main path's

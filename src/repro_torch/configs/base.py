@@ -15,9 +15,9 @@ enumerates the matrix. Shape kinds:
 
 The shape sets of every family are here as data, as ``repro`` has them
 (``pad_to`` keeps its 512-way mesh padding so the numbers stay equal). The
-registry holds only the configs the port has: the recsys family and
-``pdasc``. The LM and GNN configs come with their models; until then
-their ids raise the same ``KeyError`` as any unknown id.
+registry holds only the configs the port has: the LM and recsys families
+and ``pdasc``. The GNN config comes with its model; until then its id
+raises the same ``KeyError`` as any unknown id.
 """
 
 from __future__ import annotations
@@ -99,8 +99,13 @@ def _ensure_loaded():
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
         autoint,
+        deepseek_moe_16b,
         din,
+        granite_3_2b,
+        minitron_8b,
         pdasc,
+        qwen3_moe_235b,
+        stablelm_1_6b,
         wide_deep,
         xdeepfm,
     )

@@ -1,7 +1,11 @@
 """Model zoo of the port (counterpart of ``repro.models``).
 
-  recsys.py — EmbeddingBag + Wide&Deep / xDeepFM / DIN / AutoInt, and the
-              1M-candidate retrieval on ``ops.knn``
+  transformer.py — decoder-only LMs (dense + MoE): GQA, sort-dispatch MoE
+                   with shared experts, chunked online-softmax attention,
+                   chunked-vocab cross-entropy, per-layer remat, prefill
+                   and KV-cache decode
+  recsys.py      — EmbeddingBag + Wide&Deep / xDeepFM / DIN / AutoInt, and
+                   the 1M-candidate retrieval on ``ops.knn``
 
-``repro``'s transformer, EGNN and graph sampler come in later slices.
+``repro``'s EGNN and graph sampler come in a later slice.
 """

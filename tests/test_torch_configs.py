@@ -5,10 +5,11 @@ swap knob ``kb`` on every path that clusters.
   ``KernelConfig``: every launch knob is mirrored in ``PDASCArchConfig``
   and ``kernel_config()`` carries it through.
 * Every ported config (``config()`` and ``smoke_config()`` of the four
-  recsys archs, ``pdasc``'s shared fields), the shape sets and the cells
-  equal to ``repro``'s.
+  recsys and the five LM archs, ``pdasc``'s shared fields), the shape sets
+  and the cells equal to ``repro``'s.
 * ``launch.train.main([... "--smoke", "--device", "cpu"])`` learns, and a
-  ``--ckpt`` restart ends bit-equal to an uninterrupted run.
+  ``--ckpt`` restart ends bit-equal to an uninterrupted run, for a recsys
+  and an LM arch.
 * ``kb`` reaches ``ops.swap_deltas`` from ``compact_index`` (both
   scopes), ``build_sharded`` and ``build_streaming``.
 """
@@ -22,14 +23,19 @@ import torch
 import repro.configs as jconfigs
 from repro.configs import base as jbase
 from repro.configs.pdasc import PDASCArchConfig as JPDASCArchConfig
+from repro.models import transformer as jt
 from repro_torch import configs
+from repro_torch._tree import tree_flatten_with_path, tree_leaves
 from repro_torch.configs import base
 from repro_torch.configs.pdasc import PDASCArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import DEFAULT, KernelConfig
 from repro_torch.launch import train as launch_train
+from repro_torch.models import transformer as tt
 
 RECSYS = ["autoint", "din", "wide-deep", "xdeepfm"]
+LM = ["deepseek-moe-16b", "granite-3-2b", "minitron-8b",
+      "qwen3-moe-235b-a22b", "stablelm-1.6b"]
 
 # KernelConfig fields that are not user-facing arch knobs: tuned_gen is
 # plan-compiler plumbing (the generation stamp that invalidates cached
@@ -112,13 +118,45 @@ def test_recsys_configs_equal_repro(arch_id):
         assert dataclasses.asdict(s) == dataclasses.asdict(ja.shapes[name])
 
 
+@pytest.mark.parametrize("arch_id", LM)
+def test_lm_configs_equal_repro(arch_id):
+    a, ja = configs.get_arch(arch_id), jconfigs.get_arch(arch_id)
+    assert (a.id, a.family, a.source, a.notes) == (ja.id, ja.family,
+                                                   ja.source, ja.notes)
+    for fn, jfn in ((a.config_fn, ja.config_fn), (a.smoke_fn, ja.smoke_fn)):
+        cfg, jcfg = fn(), jfn()
+        mine, theirs = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
+        for d in (mine, theirs):
+            d.pop("dtype"), d.pop("param_dtype")
+        assert mine == theirs  # every field, the MoE config's too
+        # repro's jnp dtypes, as torch dtypes
+        assert cfg.dtype == torch.bfloat16 and jcfg.dtype.dtype.name == "bfloat16"
+        assert (cfg.param_dtype == torch.float32
+                and jcfg.param_dtype.dtype.name == "float32")
+        assert (cfg.hd, cfg.vocab_padded) == (jcfg.hd, jcfg.vocab_padded)
+        assert cfg.n_params() == jcfg.n_params()
+        assert cfg.n_active_params() == jcfg.n_active_params()
+        shapes = dict(tree_flatten_with_path(tt.param_shapes(cfg)))
+        jshapes = dict(tree_flatten_with_path(jt.param_shapes(jcfg)))
+        assert {k: v.shape for k, v in shapes.items()} == {
+            k: tuple(v.shape) for k, v in jshapes.items()}
+        cache = tt.cache_shapes(cfg, 4, 64)
+        jcache = jt.cache_shapes(jcfg, 4, 64)
+        assert {k: v.shape for k, v in cache.items()} == {
+            k: tuple(v.shape) for k, v in jcache.items()}
+        assert cache["k"].dtype == torch.bfloat16
+    assert a.shapes.keys() == ja.shapes.keys()
+    for name, s in a.shapes.items():
+        assert dataclasses.asdict(s) == dataclasses.asdict(ja.shapes[name])
+
+
 def test_shape_sets_and_cells_equal_repro():
     for mine, theirs in ((base.LM_SHAPES, jbase.LM_SHAPES),
                          (base.RECSYS_SHAPES, jbase.RECSYS_SHAPES),
                          (base.GNN_SHAPES, jbase.GNN_SHAPES)):
         assert {k: dataclasses.asdict(v) for k, v in mine.items()} == {
             k: dataclasses.asdict(v) for k, v in theirs.items()}
-    assert configs.arch_ids() == sorted(RECSYS + ["pdasc"])
+    assert configs.arch_ids() == sorted(RECSYS + LM + ["pdasc"])
     ported = set(configs.arch_ids())
     assert configs.all_cells() == [c for c in jconfigs.all_cells()
                                    if c[0] in ported]
@@ -127,9 +165,9 @@ def test_shape_sets_and_cells_equal_repro():
 
 
 def test_unported_arch_raises_listing_the_registry():
-    with pytest.raises(KeyError, match="unknown arch 'stablelm-1.6b'") as e:
-        configs.get_arch("stablelm-1.6b")
-    assert str(sorted(RECSYS + ["pdasc"])) in str(e.value)
+    with pytest.raises(KeyError, match="unknown arch 'egnn'") as e:
+        configs.get_arch("egnn")
+    assert str(sorted(RECSYS + LM + ["pdasc"])) in str(e.value)
     with pytest.raises(ValueError, match="already registered"):
         base.register_arch(configs.get_arch("din"))
 
@@ -187,7 +225,7 @@ def test_launch_train_restart_equals_uninterrupted(tmp_path):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--arch", "stablelm-1.6b"], "unknown arch"),
+    (["--arch", "egnn"], "unknown arch"),
     (["--arch", "pdasc"], "pdasc"),
     (["--arch", "din", "--smoke", "--mesh", "2x1"], "only 1x1"),
 ])
@@ -196,13 +234,40 @@ def test_launch_train_refuses_what_is_not_ported(argv, match):
         launch_train.main(argv + ["--device", "cpu"])
 
 
-def test_launch_train_lm_family_names_roadmap_item(monkeypatch):
-    lm = base.ArchDef(id="tiny-lm", family="lm", config_fn=lambda: None,
-                      smoke_fn=lambda: None, shapes=base.LM_SHAPES)
-    configs.get_arch("din")  # load the registry first
-    monkeypatch.setitem(base._REGISTRY, "tiny-lm", lm)
-    with pytest.raises(SystemExit, match="ROADMAP item 9b"):
-        launch_train.main(["--arch", "tiny-lm", "--device", "cpu"])
+LM_ARGV = ["--arch", "stablelm-1.6b", "--smoke", "--device", "cpu",
+           "--batch", "8", "--seq", "32", "--lr", "0.05", "--seed", "1"]
+
+
+def test_launch_train_lm_smoke_learns(capsys):
+    out = launch_train.main(LM_ARGV + ["--steps", "30"])
+    losses = [loss for _, loss in out["history"]]
+    assert len(losses) == 30 and np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 1.0, losses
+    assert sorted(out["params"]) == ["embed", "final_norm", "layers",
+                                     "lm_head"]
+    text = capsys.readouterr().out
+    assert "[train] done: step 29" in text
+    assert "stablelm-1.6b-smoke batch 8 x seq 32 on cpu" in text
+
+
+def test_launch_train_lm_restart_equals_uninterrupted(tmp_path):
+    argv = LM_ARGV + ["--deterministic"]
+    ref = launch_train.main(argv + ["--steps", "6"])
+    ck = str(tmp_path / "ck")
+    # inside the 100-step warmup the schedule does not depend on --steps
+    launch_train.main(argv + ["--steps", "3", "--ckpt", ck,
+                              "--ckpt-every", "1"])
+    resumed = launch_train.main(argv + ["--steps", "6", "--ckpt", ck,
+                                        "--ckpt-every", "1"])
+    assert resumed["history"][0][0] == 3
+    assert int(resumed["opt_state"].step) == 6
+    for tree in ("params", "opt_state"):
+        mine = tree_flatten_with_path(resumed[tree])
+        theirs = dict(tree_flatten_with_path(ref[tree]))
+        assert len(mine) == len(theirs) == len(tree_leaves(ref[tree]))
+        for path, leaf in mine:
+            assert torch.equal(leaf, theirs[path]), path
+    assert not torch.are_deterministic_algorithms_enabled()
 
 
 # --------------------------- kb on every clustering path -------------------
