@@ -240,8 +240,29 @@ result line):
    sequence): loss finite, ms a step, peak memory. The windows
    ``lm-prefill``, ``lm-decode``, ``lm-train``, ``moe-prefill``,
    ``moe-decode`` and ``moe-train`` must count no launch of the port's
-   kernels (the transformer is library calls). Then the script's whole
-   time.
+   kernels (the transformer is library calls).
+15. (n) The GNN family: the EGNN at ``config()``'s width (4 layers,
+   d_hidden 64; weights from CUDA generator seeds, data from numpy
+   seeds). ``molecule``: 128 molecules of 30 atoms, each graph from
+   ``knn_graph(method="exact", k=2)`` (60 edges, within the shape's 64;
+   one knn launch a molecule in ``gnn-molecule-graph``); the card's
+   ``graph_reg_loss`` equal to the CPU's on the same weights and batch;
+   20 AdamW steps on a rotation-invariant target, the loss must fall.
+   ``minibatch_lg``: 232,965 3-D points, ``knn_graph(method="exact",
+   k=492)`` (114.6 M edges; one knn launch in ``gnn-graph``; the kernel's
+   ids for 1,000 random rows held to the plain knn of those rows, its ms
+   beside the bound and ``torch.topk(torch.cdist(...))`` over query blocks:
+   the knn row's ``knn_graph`` entry), the self-edge mask and
+   ``CSRGraph.from_edge_list`` timed; the PDASC route at k = 15 over
+   every point (``gnn-pdasc``: pairwise and swap_deltas), its edge
+   overlap with the exact graph's first 15 a row above 0.7; 3 AdamW
+   steps of ``node_class_loss`` with remat, each on 4 sampled subgraphs
+   (fanouts (15, 10), 1,024 seeds; ``sample_subgraph`` gathers their
+   features, coordinates and labels on the host) run as one disjoint graph
+   (``gnn-train`` and ``gnn-molecule-train`` count no launch); the card's
+   loss on one subgraph equal to the CPU's; two backward passes
+   bit-compared with deterministic algorithms off and on (``index_add_``'s
+   atomics); the second must be bit-equal. Then the script's whole time.
 
 Tolerance rule (as in tests/test_torch_*.py): fp32 results agree within
 rtol = 1e-5 and atol = 1e-5 * max(1, max|ref|); l2 distances are compared
@@ -374,6 +395,13 @@ WINDOW_KERNELS = {
     "moe-prefill": (),  # deepseek-moe-16b prefill, 2 x 4,096
     "moe-decode": (),  # its greedy decode
     "moe-train": (),  # one loss_fn backward
+    # (n): the GNN's graphs come from knn.cu (exact) or the PDASC index;
+    # the EGNN itself is library calls
+    "gnn-molecule-graph": ("knn",),  # knn_graph, one launch a molecule
+    "gnn-molecule-train": (),  # 20 AdamW steps of graph_reg_loss
+    "gnn-graph": ("knn",),  # knn_graph at k = 492 over 232,965 points
+    "gnn-pdasc": ("pairwise", "swap_deltas"),  # the build + dense plan
+    "gnn-train": (),  # node_class_loss steps on sampled subgraphs
 }
 SYMBOLS = {  # each kernel's __global__ functions
     "pairwise": ("pairwise_kernel",), "rank": ("rank_kernel",),
@@ -398,8 +426,9 @@ SERVE_BATCH, SERVE_WAIT_MS = 32, 4.0  # launch/serve.py's defaults
 SERVE_THREADS = 8  # closed-loop submitting threads
 SERVE_OPEN = 1000  # open-loop arrivals of the engine phase
 # rows of the profiled builds: the profiler's cost grows with the launches
-# (a profiled 1M pam build took 30 s), so the profiles cut depth
-PROFILE_ROWS = dict(pam=200_000, kmeans=50_000)
+# (a profiled 1M pam build took 30 s, one at 200,000 rows 20 s; an affected
+# compaction of the 1M index 25 s), so the profiles cut depth
+PROFILE_ROWS = dict(pam=50_000, kmeans=20_000)
 OPEN_LOAD = 0.6  # open-loop rate over closed-loop saturation (bench_serve)
 SERVE_CHURN = dict(searches=4096, writes=2560, delete_every=5, noise=0.01,
                    delta_capacity=4096, delta_fill=0.5)  # configs/pdasc.py
@@ -446,6 +475,16 @@ MOE_PREFILL = (2, 4096, 16)  # batch, prompt tokens, greedy decode steps
 MOE_TRAIN = (1, 1024)  # one loss_fn backward: batch, tokens
 LM_TRAIN = ["--arch", LM_ARCH, "--seq", "4096", "--batch", "1", "--steps",
             "5", "--seed", "0"]  # train_4k's seq; its batch 256 cut to 1
+GNN_MOLECULE_K = 2  # (n): 30 atoms x 2 = 60 edges, within the shape's 64
+GNN_MOLECULE_STEPS = 20
+GNN_LG_K = 492  # 232,965 x 492 = 114,618,780 edges (the shape: 114,615,892)
+GNN_CHECK_ROWS = 1000  # rows of the k = 492 graph held to the plain knn
+GNN_PDASC_K = 15  # tests/test_models.py's route at minibatch_lg's fanout
+GNN_SUBGRAPHS = 4  # subgraphs a step: n_subgraphs 32 cut to 4 (host sampling)
+GNN_STEPS = 3
+GNN_LIB_BLOCK = 4096  # query rows a torch.cdist + torch.topk block
+GNN_OPT = dict(lr=1e-2, warmup_steps=0, total_steps=100, weight_decay=0.0,
+               schedule="constant")  # AdamWConfig of (n)'s steps
 
 
 class CheckFailed(RuntimeError):
@@ -1161,20 +1200,34 @@ def phase_cpu_check(main: dict) -> None:
 
 
 def phase_profile(data: np.ndarray, main: dict) -> None:
-    """Device busy share and top ops of one search call and one build; the
-    search's profile is kept in ``main`` (its rank launches' sum)."""
+    """Device busy share and top ops of one search call, one build and one
+    affected compaction (of the profiled build's index after ``CHURN`` / 16
+    of writes); the search's profile is kept in ``main`` (its rank
+    launches' sum)."""
     from repro_torch.core.index import PDASCIndex
+    from repro_torch.online import EpochHandle
     from repro_torch.query import Query
 
     plan = main["idx"].plan(Query(k=10))
     main["search_profile"] = profile_breakdown(
         f"search {N_QUERIES} queries, beam 32", lambda: plan(main["Qc"]))
     n = PROFILE_ROWS["pam"]
-    profile_breakdown(
-        f"build n={n}",
-        lambda: PDASCIndex.build(data[:n], gl=256, distance="euclidean",
-                                 radius_quantile=0.35,
-                                 group_chunk=GROUP_CHUNK, device="cuda"))
+
+    def build():
+        return PDASCIndex.build(data[:n], gl=256, distance="euclidean",
+                                radius_quantile=0.35,
+                                group_chunk=GROUP_CHUNK, device="cuda")
+
+    profile_breakdown(f"build n={n}", build)
+    idx = build()
+    idx.enable_mutations()
+    rng = np.random.default_rng(3)
+    leaf_ids = idx.data.leaf_ids[idx.data.levels[0].valid].cpu().numpy()
+    w = apply_churn(EpochHandle(idx, delta_fill=1.0, tombstone_ratio=1.0),
+                    *churn_ops(rng, data[:n], leaf_ids, scale=16), rng)
+    profile_breakdown(f"compact(affected) n={n} after {w['n_ops']} writes",
+                      lambda: idx.compact(scope="affected",
+                                          group_chunk=GROUP_CHUNK))
 
 
 def phase_timing(data: np.ndarray, main: dict) -> list:
@@ -1885,8 +1938,6 @@ def phase_online(main: dict, data: np.ndarray, workdir: str) -> dict:
     require(same_group[untouched].all(),
             "affected compaction changed an untouched group's rows")
     share = 1.0 - same_group.mean()
-    profile_breakdown("compact(affected)", lambda: idx.compact(
-        scope="affected", group_chunk=GROUP_CHUNK), wall_ms=1e3 * aff_s)
     profile_breakdown(f"routing of {CHURN['batch']} upserts",
                       lambda: idx._route_to_leaf(ups[0][1]))
     exact = {}
@@ -2923,7 +2974,8 @@ def phase_serve_cli(paths: dict, tag: str = "serve-cli") -> dict:
                                  env=dict(os.environ, PYTHONPATH=SRC))
             secs = time.perf_counter() - t0
             lines = [ln for ln in run.stdout.splitlines()
-                     if "recall" in ln or "errors=" in ln]
+                     if "recall" in ln or "errors=" in ln
+                     or "built on" in ln or "warm-up" in ln]
             require(run.returncode == 0, f"serve CLI ({name}) exited "
                     f"{run.returncode}: {run.stderr[-3000:]}")
             require(any("recall" in ln for ln in lines),
@@ -4271,6 +4323,343 @@ def phase_lm() -> dict:
     return out
 
 
+def gnn_no_launch(window: str) -> None:
+    """``launched`` for a window of the EGNN itself: no launch allowed."""
+    counts = launched(window)
+    require(not any(counts.values()),
+            f"{window}: the EGNN launched a kernel of the port: {counts}")
+
+
+def gnn_molecule(base, rng) -> dict:
+    """(n), molecule: 128 molecules of 30 atoms on their own kNN graphs."""
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.egnn import specialise
+    from repro_torch.models import gnn
+    from repro_torch.models import graph_sampler as gs
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   value_and_grad)
+
+    dims = GNN_SHAPES["molecule"].dims
+    B, n, k = dims["batch"], dims["n_nodes"], GNN_MOLECULE_K
+    cfg = specialise(base, "molecule")
+    coords = rng.normal(size=(B, n, 3)).astype(np.float32)
+    coords *= rng.uniform(0.5, 1.5, (B, 1, 1)).astype(np.float32)
+    start_phase()
+    t0 = time.perf_counter()
+    edges = np.stack([gs.knn_graph(c, k) for c in coords])
+    graph_s = time.perf_counter() - t0
+    counts = launched("gnn-molecule-graph")
+    require(counts["knn"] == B, f"molecule graphs launched knn "
+            f"{counts['knn']} times, not once a molecule")
+    require(edges.shape == (B, 2, n * k) and n * k <= dims["n_edges"],
+            f"molecule edges of shape {edges.shape}")
+    centred = coords - coords.mean(1, keepdims=True)
+    batch = {name: torch.from_numpy(v).cuda() for name, v in dict(
+        feats=rng.normal(size=(B, n, cfg.d_feat)).astype(np.float32),
+        coords=coords, edges=edges,
+        targets=(centred ** 2).sum(-1).mean(-1).astype(np.float32)).items()}
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    params = gnn.init_params(cfg, gen, device="cuda")
+    with torch.no_grad():
+        card = gnn.graph_reg_loss(params, batch, cfg)[0]
+        cpu = gnn.graph_reg_loss(tree_map(lambda t: t.cpu(), params),
+                                 tree_map(lambda t: t.cpu(), batch), cfg)[0]
+    err = values_agree(np.array([float(card)]), np.array([float(cpu)]))
+    opt = adamw_init(params)
+    losses, step_ms = [], []
+    start_phase()
+    for _ in range(GNN_MOLECULE_STEPS):
+        t0 = time.perf_counter()
+        (loss, _), g = value_and_grad(
+            lambda p, b: gnn.graph_reg_loss(p, b, cfg), params, batch)
+        params, opt, _ = adamw_update(g, opt, params, AdamWConfig(**GNN_OPT))
+        losses.append(float(loss))
+        step_ms.append(1e3 * sync_s(t0))
+    gnn_no_launch("gnn-molecule-train")
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"molecule loss did not fall: {losses}")
+    log(f"[gnn] molecule ({B} x {n} atoms, d_feat {cfg.d_feat}): "
+        f"{B} knn_graph(k={k}) in {graph_s:.3f} s ({k * n} edges each); "
+        f"graph_reg_loss card {float(card):.6f} == CPU {float(cpu):.6f} "
+        f"(err {err:.3g}); {GNN_MOLECULE_STEPS} AdamW steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; ms a step (host clock, "
+        f"synchronised) {step_ms[0]:.3f} the first, median of the rest "
+        f"{float(np.median(step_ms[1:])):.3f}")
+    return dict(graph_s=graph_s, loss=losses, step_ms=step_ms,
+                max_abs_err=err)
+
+
+def gnn_exact_graph(pts, X, rng) -> dict:
+    """(n), minibatch_lg's graph: ``knn_graph(k=492)`` over every point,
+    through one knn launch (caught by a spy on ``ops.knn`` so that its
+    output can be checked), then ``CSRGraph.from_edge_list``."""
+    import torch
+    from repro_torch.kernels import ops, ref, topk
+    from repro_torch.models import graph_sampler as gs
+
+    N, d = X.shape
+    k1 = GNN_LG_K + 1
+    seen = {}
+    real = ops.knn
+
+    def spy(Q, DB, distance="l2", **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(Q, DB, distance, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        seen.update(ms=start.elapsed_time(end), out=out,
+                    done=time.perf_counter())
+        return out
+
+    start_phase()
+    ops.knn = spy
+    try:
+        t0 = time.perf_counter()
+        edges = gs.knn_graph(pts, GNN_LG_K)
+        t_end = time.perf_counter()
+    finally:
+        ops.knn = real
+    counts = launched("gnn-graph")
+    require(counts["knn"] == 1,
+            f"gnn-graph launched knn {counts['knn']} times")
+    wall, mask_s = t_end - t0, t_end - seen["done"]
+    kd, ki = seen.pop("out")
+    require(edges.shape == (2, N * GNN_LG_K), f"edges of shape {edges.shape}")
+
+    rows = torch.from_numpy(
+        rng.choice(N, GNN_CHECK_ROWS, replace=False)).cuda()
+    Q = X[rows]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    rd, ri = ref.knn_ref(Q, X, k1, "l2")
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    again = ref.rowwise_ref(Q, X[ki[rows].long()], "l2")
+    err = topk_agree(kd[rows].cpu(), ki[rows].cpu(), rd.cpu(), ri.cpu(),
+                     again.cpu(), squared=True)
+    del rd, ri, again
+
+    def library():
+        for i in range(0, N, GNN_LIB_BLOCK):
+            torch.topk(torch.cdist(X[i:i + GNN_LIB_BLOCK], X), k1,
+                       largest=False)
+
+    library_ms = time_ms(library, iters=1, warmup=1)
+    b_ms, b_by = bound(2.0 * N * N * d, 4.0 * 2 * N * d + 8.0 * N * k1,
+                       PEAK_GRAM)
+    geo = topk.knn_geometry(N, N, d, k1, "l2")
+    t0 = time.perf_counter()
+    g = gs.CSRGraph.from_edge_list(edges[0], edges[1], N)
+    csr_s = time.perf_counter() - t0
+    require(g.n_edges == N * GNN_LG_K and g.n_nodes == N,
+            f"CSR of {g.n_nodes} nodes, {g.n_edges} edges")
+    log(f"[gnn] minibatch_lg graph: knn_graph(k={GNN_LG_K}) over {N:,} 3-D "
+        f"points: {wall:.3f} s, of it the knn kernel at [{N}, {N}, {d}], "
+        f"k={k1}: {seen['ms']:.3f} ms (CUDA events around its one launch), "
+        f"the copy to the host and the self-edge mask {mask_s:.3f} s; "
+        f"{edges.shape[1]:,} edges; CSRGraph.from_edge_list {csr_s:.3f} s")
+    log(f"[time] knn at knn_graph's shape [{N}, {N}, {d}, {k1}]: kernel "
+        f"{seen['ms']:.4f} ms, plain {plain_ms:.4f} ms for "
+        f"{GNN_CHECK_ROWS} rows, library topk(cdist) over blocks of "
+        f"{GNN_LIB_BLOCK} {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); {GNN_CHECK_ROWS} random rows held to the plain knn "
+        f"(max abs err {err:.3g}, squared)")
+    row = dict(shape=[N, N, d, k1], form="l2", launches=counts["knn"],
+               ms=seen["ms"], plain_ms=plain_ms, plain_rows=GNN_CHECK_ROWS,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=err, geometry=dict(
+                   route=geo.route, bq=geo.bq, splits=geo.splits,
+                   chunk=geo.chunk, shared_states=geo.shared_states))
+    return dict(edges=edges, graph=g, wall_s=wall, mask_s=mask_s,
+                csr_s=csr_s, row=row)
+
+
+def gnn_pdasc(pts, edges) -> dict:
+    """(n): the PDASC route of ``knn_graph`` at k = 15 over every point
+    (the build in slabs of ``GROUP_CHUNK`` groups: the default 8 took 23
+    of its 26 s at 160,000 points), its edges' overlap with the exact
+    graph's first 15 a row."""
+    from repro_torch.models import graph_sampler as gs
+
+    N, k = len(pts), GNN_PDASC_K
+    start_phase()
+    t0 = time.perf_counter()
+    got = gs.knn_graph(pts, k, method="pdasc",
+                       pdasc_kwargs=dict(group_chunk=GROUP_CHUNK))
+    secs = sync_s(t0)
+    launched("gnn-pdasc")
+    want = edges.reshape(2, N, GNN_LG_K)[:, :, :k].reshape(2, -1)
+    key = lambda e: e[0].astype(np.int64) * N + e[1]  # noqa: E731
+    overlap = float(np.isin(key(want), key(got)).mean())
+    require(overlap > 0.7, f"PDASC knn_graph overlap {overlap:.4f} <= 0.7")
+    log(f"[gnn] PDASC knn_graph(k={k}) over {N:,} points (gl "
+        f"{max(8, min(64, N // 4))}, group_chunk {GROUP_CHUNK}, dense plan "
+        f"at 4 x the default radius): {secs:.3f} s; {got.shape[1]:,} edges, "
+        f"overlap with the exact graph's first {k} a row {overlap:.4f} "
+        f"(bar 0.7)")
+    return dict(seconds=secs, overlap=overlap)
+
+
+def gnn_batch(subs, n_max):
+    """Subgraphs as one disjoint graph on the card: ``sample_subgraph``'s
+    arrays (its own feature, coordinate and label gathers) concatenated,
+    each subgraph's edges offset by its ``n_max`` slots."""
+    import torch
+
+    def cat(key):
+        return torch.from_numpy(np.concatenate([s[key] for s in subs])).cuda()
+
+    offs = torch.arange(len(subs), device="cuda")[:, None, None] * n_max
+    edges = (torch.from_numpy(np.stack([s["edges"] for s in subs])).cuda()
+             .long() + offs).transpose(0, 1).reshape(2, -1)
+    return dict(feats=cat("feats"), coords=cat("coords"),
+                labels=cat("labels"), edges=edges,
+                edge_mask=cat("edge_mask"), label_mask=cat("label_mask"))
+
+
+def gnn_train(base, graph, pts, rng) -> dict:
+    """(n), minibatch_lg training: sampled subgraphs, AdamW steps of
+    ``node_class_loss`` with remat; card == CPU on one subgraph; two
+    backward passes bit-compared with deterministic algorithms off and
+    on."""
+    import torch
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.configs.egnn import specialise
+    from repro_torch.models import gnn
+    from repro_torch.models import graph_sampler as gs
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   value_and_grad)
+
+    dims = GNN_SHAPES["minibatch_lg"].dims
+    N, fanouts, seeds_n = dims["n_nodes"], dims["fanouts"], dims["batch_nodes"]
+    cfg = specialise(base, "minibatch_lg")
+    n_max, e_max = gs.subgraph_budget(seeds_n, fanouts)
+    t0 = time.perf_counter()
+    feats = rng.standard_normal((N, cfg.d_feat), dtype=np.float32)
+    labels = feats[:, :cfg.n_classes].argmax(1)  # a planted function
+    log(f"[gnn] minibatch_lg features [{N}, {cfg.d_feat}] and "
+        f"{cfg.n_classes} labels made on the host in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+
+    def sample(count):
+        t = time.perf_counter()
+        subs = [gs.sample_subgraph(
+            graph, rng.choice(N, seeds_n, replace=False), fanouts, rng,
+            feats=feats, labels=labels, coords=pts) for _ in range(count)]
+        return subs, time.perf_counter() - t
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = gnn.init_params(cfg, gen, device="cuda")
+    opt = adamw_init(params)
+
+    def loss_of(p, b):
+        return gnn.node_class_loss(p, b, cfg)
+
+    sample_s, copy_s, step_ms, losses, sizes = [], [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    start_phase()
+    for _ in range(GNN_STEPS):
+        subs, secs = sample(GNN_SUBGRAPHS)
+        sample_s.append(secs)
+        sizes.append([(s["n_nodes"], s["n_edges"]) for s in subs])
+        t0 = time.perf_counter()
+        batch = gnn_batch(subs, n_max)
+        copy_s.append(sync_s(t0))
+        t0 = time.perf_counter()
+        (loss, _), grads = value_and_grad(loss_of, params, batch)
+        params, opt, _ = adamw_update(grads, opt, params,
+                                      AdamWConfig(**GNN_OPT))
+        losses.append(float(loss))
+        step_ms.append(1e3 * sync_s(t0))
+        del batch, grads
+    gnn_no_launch("gnn-train")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(np.isfinite(losses).all(), f"minibatch_lg losses {losses}")
+    log(f"[gnn] minibatch_lg training ({cfg.n_layers} layers, d_hidden "
+        f"{cfg.d_hidden}, d_feat {cfg.d_feat}, {cfg.n_classes} classes, "
+        f"remat): {GNN_STEPS} AdamW steps of {GNN_SUBGRAPHS} subgraphs "
+        f"(n_max {n_max:,}, e_max {e_max:,}; real (nodes, edges) "
+        f"{sizes[0]}): losses {[round(x, 4) for x in losses]}, "
+        f"{[round(x, 1) for x in step_ms]} ms a step (host clock, "
+        f"synchronised), the batch's copy to the card "
+        f"{[round(x, 2) for x in copy_s]} s a step, sampling "
+        f"{[round(x, 2) for x in sample_s]} s a step (host, the sampler's "
+        f"feature, coordinate and label gathers included), peak memory "
+        f"{peak:.2f} GB")
+
+    subs, _ = sample(1)
+    one = gnn_batch(subs, n_max)
+    with torch.no_grad():
+        card = float(loss_of(params, one)[0])
+        cpu = float(loss_of(tree_map(lambda t: t.cpu(), params),
+                            {k: v.cpu() for k, v in one.items()})[0])
+    err = values_agree(np.array([card]), np.array([cpu]))
+    log(f"[gnn] node_class_loss on one subgraph: card {card:.7f} == CPU "
+        f"{cpu:.7f} (err {err:.3g})")
+
+    det = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    try:
+        for flag in (False, True):
+            torch.use_deterministic_algorithms(flag, warn_only=True)
+            runs, ms = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                (loss, _), g = value_and_grad(loss_of, params, one)
+                ms.append(1e3 * sync_s(t0))
+                runs.append([loss] + tree_leaves(g))
+            det[flag] = dict(equal=all(torch.equal(a, b) for a, b in
+                                       zip(*runs)), ms=ms)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    log(f"[gnn] one subgraph's loss and gradients twice: bit-equal "
+        f"{det[False]['equal']} with deterministic algorithms off "
+        f"({[round(x, 1) for x in det[False]['ms']]} ms), "
+        f"{det[True]['equal']} with them on "
+        f"({[round(x, 1) for x in det[True]['ms']]} ms)")
+    require(det[True]["equal"], "deterministic algorithms did not make two "
+            "backward passes bit-equal")
+    return dict(losses=losses, step_ms=step_ms, sample_s=sample_s,
+                copy_s=copy_s,
+                peak_gb=peak, max_abs_err=err,
+                deterministic={str(k): v for k, v in det.items()})
+
+
+def phase_gnn() -> dict:
+    """(n) The GNN family on the card (see the module docstring)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GNN_SHAPES
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = get_arch("egnn").config_fn()
+    rng = np.random.default_rng(25)
+    out = dict(molecule=gnn_molecule(base, rng))
+    N = GNN_SHAPES["minibatch_lg"].dims["n_nodes"]
+    pts = rng.uniform(size=(N, 3)).astype(np.float32)
+    X = torch.from_numpy(pts).cuda()
+    exact = gnn_exact_graph(pts, X, rng)
+    out["row"] = exact.pop("row")
+    want = GNN_SHAPES["minibatch_lg"].dims["n_edges"]
+    log(f"[gnn] {exact['edges'].shape[1]:,} edges against minibatch_lg's "
+        f"{want:,}: {100 * abs(exact['edges'].shape[1] / want - 1):.4f}% off")
+    out["pdasc"] = gnn_pdasc(pts, exact.pop("edges"))
+    out["train"] = gnn_train(base, exact.pop("graph"), pts, rng)
+    out["graph"] = exact
+    del X
+    torch.cuda.empty_cache()
+    log(f"[gnn] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -4329,7 +4718,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as work:
         recsys = phase_recsys(work)
     phase_lm()
-    next(r for r in rows if r["name"] == "knn")["retrieval"] = recsys["row"]
+    gnn = phase_gnn()
+    knn_row = next(r for r in rows if r["name"] == "knn")
+    knn_row["retrieval"] = recsys["row"]
+    knn_row["knn_graph"] = gnn["row"]
     log(f"[script] {time.perf_counter() - t_start:.1f} s from its start")
     for r in rows:  # each phase's launches of the kernel, beside the main path's
         r["phase_launches"] = {ph: c[r["name"]] for ph, c in PHASE_LAUNCHES.items()}

@@ -15,9 +15,8 @@ enumerates the matrix. Shape kinds:
 
 The shape sets of every family are here as data, as ``repro`` has them
 (``pad_to`` keeps its 512-way mesh padding so the numbers stay equal). The
-registry holds only the configs the port has: the LM and recsys families
-and ``pdasc``. The GNN config comes with its model; until then its id
-raises the same ``KeyError`` as any unknown id.
+registry holds every config ``repro`` has: the LM, GNN and recsys
+families and ``pdasc``.
 """
 
 from __future__ import annotations
@@ -101,6 +100,7 @@ def _ensure_loaded():
         autoint,
         deepseek_moe_16b,
         din,
+        egnn,
         granite_3_2b,
         minitron_8b,
         pdasc,

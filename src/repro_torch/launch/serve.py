@@ -65,6 +65,11 @@ from repro_torch.online import EpochHandle, live_dataset
 from repro_torch.query import Query
 from repro_torch.serving import BatchingEngine, QueryHandler
 
+# a build slab holds [slab, gl, gl] distances: about 2^26 of them (1,024
+# groups at gl 256). The index does not depend on the slab; larger slabs
+# launch fewer, larger kernels.
+_SLAB_ENTRIES = 1 << 26
+
 
 def _parse(argv=None):
     p = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
@@ -214,7 +219,11 @@ def _serve_replicated(args, idx, kernel, train, test):
           + (f", faults={args.faults}" if plan else ", fault-free"))
     dash = None
     try:
-        router.search(test[0])  # warm-up: the kernels build on first use
+        # warm-up: the kernels build on first use, so it is not held to
+        # the request deadline
+        t0 = time.time()
+        router.search(test[0], deadline_s=600.0)
+        print(f"[serve] warm-up search {time.time() - t0:.3f}s")
         if args.dash:
             dash = obs.Dashboard(quality=router.quality, slo=slo,
                                  router=router)
@@ -335,6 +344,7 @@ def _build(args, train):
                         store_path=None if remote else args.store_path)
     idx = PDASCIndex.build(train, gl=args.gl, distance=args.distance,
                            radius_quantile=args.radius_quantile,
+                           group_chunk=max(1, _SLAB_ENTRIES // args.gl ** 2),
                            device=args.device, **store_kw)
     if remote:
         from repro_torch.store import SimulatedObjectStore, make_remote
@@ -450,7 +460,9 @@ def _drive_single(args, idx, handle, handler, engine, sampler, est, train,
     lat, results = [], []
     try:
         # warm-up: the kernels build on first use
+        t0 = time.time()
         engine.submit(test[0]).wait(timeout=600)
+        print(f"[serve] warm-up search {time.time() - t0:.3f}s")
         for j, i in enumerate(q_rows):
             if (write_every and j < head and j % write_every == 0
                     and j // write_every < churn):

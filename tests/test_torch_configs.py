@@ -6,7 +6,8 @@ swap knob ``kb`` on every path that clusters.
   and ``kernel_config()`` carries it through.
 * Every ported config (``config()`` and ``smoke_config()`` of the four
   recsys and the five LM archs, ``pdasc``'s shared fields), the shape sets
-  and the cells equal to ``repro``'s.
+  and the cells equal to ``repro``'s (``egnn``'s config is held to
+  ``repro``'s in ``tests/test_torch_gnn.py``).
 * ``launch.train.main([... "--smoke", "--device", "cpu"])`` learns, and a
   ``--ckpt`` restart ends bit-equal to an uninterrupted run, for a recsys
   and an LM arch.
@@ -156,18 +157,19 @@ def test_shape_sets_and_cells_equal_repro():
                          (base.GNN_SHAPES, jbase.GNN_SHAPES)):
         assert {k: dataclasses.asdict(v) for k, v in mine.items()} == {
             k: dataclasses.asdict(v) for k, v in theirs.items()}
-    assert configs.arch_ids() == sorted(RECSYS + LM + ["pdasc"])
-    ported = set(configs.arch_ids())
-    assert configs.all_cells() == [c for c in jconfigs.all_cells()
-                                   if c[0] in ported]
-    assert configs.all_cells(include_pdasc=False) == [
-        c for c in jconfigs.all_cells(include_pdasc=False) if c[0] in ported]
+    assert configs.arch_ids() == sorted(RECSYS + LM + ["egnn", "pdasc"])
+    assert configs.arch_ids() == jconfigs.arch_ids()
+    assert configs.all_cells() == jconfigs.all_cells()
+    assert configs.all_cells(include_pdasc=False) == jconfigs.all_cells(
+        include_pdasc=False)
 
 
 def test_unported_arch_raises_listing_the_registry():
-    with pytest.raises(KeyError, match="unknown arch 'egnn'") as e:
-        configs.get_arch("egnn")
-    assert str(sorted(RECSYS + LM + ["pdasc"])) in str(e.value)
+    with pytest.raises(KeyError, match="unknown arch 'no-such-arch'") as e:
+        configs.get_arch("no-such-arch")
+    with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
+        jconfigs.get_arch("no-such-arch")
+    assert str(sorted(RECSYS + LM + ["egnn", "pdasc"])) in str(e.value)
     with pytest.raises(ValueError, match="already registered"):
         base.register_arch(configs.get_arch("din"))
 
@@ -225,9 +227,10 @@ def test_launch_train_restart_equals_uninterrupted(tmp_path):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--arch", "egnn"], "unknown arch"),
+    (["--arch", "no-such-arch"], "unknown arch"),
     (["--arch", "pdasc"], "pdasc"),
     (["--arch", "din", "--smoke", "--mesh", "2x1"], "only 1x1"),
+    (["--arch", "egnn"], "is gnn"),  # driven from the examples, as in repro
 ])
 def test_launch_train_refuses_what_is_not_ported(argv, match):
     with pytest.raises((SystemExit, KeyError), match=match):

@@ -443,6 +443,26 @@ def test_serve_replicated_path_runs_to_its_end(capsys):
     assert "errors=0" in out and "online recall estimate" in out, out
 
 
+def test_serve_build_slab_follows_gl(monkeypatch):
+    """The CLI's build clusters slabs of about 2^26 distances, so the slab
+    follows ``--gl`` (1,024 groups at gl 256, 16,384 at gl 64); the index
+    does not depend on it."""
+    from repro_torch.launch import serve
+
+    seen = []
+    real = serve.PDASCIndex.build
+
+    def spy(*args, **kw):
+        seen.append((kw["gl"], kw["group_chunk"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(serve.PDASCIndex, "build", spy)
+    monkeypatch.setattr(serve, "_serve_single", lambda *a: None)
+    serve.main(SERVE)
+    serve.main(SERVE + ["--gl", "256"])
+    assert seen == [(64, 16384), (256, 1024)]
+
+
 def test_serve_refuses_the_remote_store(capsys):
     """``--store remote`` is ported: the two-stage index moves its exact
     payload into a simulated object store and serves from it, on the
