@@ -256,13 +256,38 @@ result line):
    ``CSRGraph.from_edge_list`` timed; the PDASC route at k = 15 over
    every point (``gnn-pdasc``: pairwise and swap_deltas), its edge
    overlap with the exact graph's first 15 a row above 0.7; 3 AdamW
-   steps of ``node_class_loss`` with remat, each on 4 sampled subgraphs
-   (fanouts (15, 10), 1,024 seeds; ``sample_subgraph`` gathers their
-   features, coordinates and labels on the host) run as one disjoint graph
-   (``gnn-train`` and ``gnn-molecule-train`` count no launch); the card's
-   loss on one subgraph equal to the CPU's; two backward passes
-   bit-compared with deterministic algorithms off and on (``index_add_``'s
-   atomics); the second must be bit-equal. Then the script's whole time.
+   steps through the egnn ``minibatch_lg`` cell (``launch/steps.py``, its
+   32 subgraphs cut to 4, on a (1, 1) ``MeshShape``), each on 4 sampled
+   subgraphs (fanouts (15, 10), 1,024 seeds; ``sample_subgraph`` gathers
+   their features, coordinates and labels on the host) stacked as the
+   cell's arguments and run as one disjoint graph, the loss the mean of
+   the subgraphs' ``node_class_loss`` with remat (``gnn-train`` and
+   ``gnn-molecule-train`` count no launch); the card's loss on one
+   subgraph equal to the CPU's; two backward passes bit-compared with
+   deterministic algorithms off and on (``index_add_``'s atomics); the
+   second must be bit-equal.
+16. (o) The cells (``launch/steps.py``) and the dry-run
+   (``launch/dryrun.py``). All 42 cells on both production meshes
+   ((16, 16) and (2, 16, 16) ``MeshShape``s) through ``run_cell`` on the
+   meta device, in this process: one line a cell, every one ``ok``. Then
+   on a ``gloo`` world of one (``HashStore``, a (1, 1) ``DeviceMesh``,
+   destroyed at the end of the phase): pdasc ``build_1m`` through its cell
+   at full width (``dense_embed`` 2^20 x 100, gl 1,024, pam, the config's
+   knobs; pairwise and swap_deltas must launch in ``cells-build``; the
+   index's invariants), its leaves' shapes equal to the dry-run's
+   analytic ``search_1m`` arguments; ``search_1m`` in the ``base`` (dense)
+   and ``opt-beam`` variants on 4,096 held-out queries, k = 10: each
+   window's launches printed, two calls bit-equal, the answers equal to
+   the port's one-process dense (or beam) search on the same index up to
+   near-ties, recall@10 against ``exact_knn``; the build's seconds, the
+   searches' ms (second call) and peak GB, each beside the dry-run's
+   ``step_time_lower_bound_s`` of the same cell on a (1, 1)
+   ``MeshShape``. wide-deep's ``retrieval_cand`` (1,000,448 padded
+   candidates, knn launching once; the top-100 held to ``knn_ref`` up to
+   near-ties), ``serve_p99`` and ``train_batch`` (two steps) through
+   ``cell.step`` at full width on tensors made in the cells' argument
+   shapes. The LM cells run on the meta device only ((m) drives the
+   transformer). Then the script's whole time.
 
 Tolerance rule (as in tests/test_torch_*.py): fp32 results agree within
 rtol = 1e-5 and atol = 1e-5 * max(1, max|ref|); l2 distances are compared
@@ -300,12 +325,12 @@ N_QUERIES = 1000
 GROUP_CHUNK = 1024  # groups per build slab (the result does not depend on it)
 N_CPU_CHECK = 256
 RECALL_FLOOR = 0.85  # repro on the CPU records 0.904 (BENCH_search.json)
-PEAK_FP32 = 67e12  # H100 SXM fp32 on the CUDA cores
-PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense
-# The Gram forms may take either route: fp32 on the CUDA cores, or 3xTF32
-# (three TF32 products per fp32 product) on the tensor cores.
-PEAK_GRAM = max(PEAK_FP32, PEAK_TF32 / 3)
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# The card's rates, read from their one source, repro_torch.launch.mesh
+# (the H100 SXM's spec sheet), by load_constants() once the checkout's src/
+# is on the path: fp32 on the CUDA cores (PEAK_FP32), TF32 on the tensor
+# cores (PEAK_TF32), the Gram forms' faster route of fp32 and 3xTF32 (three
+# TF32 products per fp32 product; PEAK_GRAM), and the HBM rate (PEAK_BYTES).
+PEAK_FP32 = PEAK_TF32 = PEAK_GRAM = PEAK_BYTES = None
 BIG = 1e30
 PHASE_LAUNCHES: dict = {}  # phase -> launch counts of its own run
 
@@ -402,6 +427,14 @@ WINDOW_KERNELS = {
     "gnn-graph": ("knn",),  # knn_graph at k = 492 over 232,965 points
     "gnn-pdasc": ("pairwise", "swap_deltas"),  # the build + dense plan
     "gnn-train": (),  # node_class_loss steps on sampled subgraphs
+    # (o): the cells (launch/steps.py) on a gloo world of one
+    "cells-build": ("pairwise", "swap_deltas"),  # pdasc build_1m
+    "cells-truth": ("knn",),  # exact_knn for the search's recall
+    "cells-search-base": ("pairwise",),  # search_1m, dense: one a level
+    "cells-search-opt-beam": ("pairwise", "rank"),  # search_1m, beam 32
+    "cells-retrieval": ("knn",),  # wide-deep retrieval_cand
+    "cells-serve": (),  # wide-deep serve_p99: library calls
+    "cells-train": (),  # wide-deep train_batch: library calls
 }
 SYMBOLS = {  # each kernel's __global__ functions
     "pairwise": ("pairwise_kernel",), "rank": ("rank_kernel",),
@@ -429,6 +462,7 @@ SERVE_OPEN = 1000  # open-loop arrivals of the engine phase
 # (a profiled 1M pam build took 30 s, one at 200,000 rows 20 s; an affected
 # compaction of the 1M index 25 s), so the profiles cut depth
 PROFILE_ROWS = dict(pam=50_000, kmeans=20_000)
+SAVE_ROWS = 50_000  # the online phase's v3 save / load (was the 1M index)
 OPEN_LOAD = 0.6  # open-loop rate over closed-loop saturation (bench_serve)
 SERVE_CHURN = dict(searches=4096, writes=2560, delete_every=5, noise=0.01,
                    delta_capacity=4096, delta_fill=0.5)  # configs/pdasc.py
@@ -483,8 +517,9 @@ GNN_PDASC_K = 15  # tests/test_models.py's route at minibatch_lg's fanout
 GNN_SUBGRAPHS = 4  # subgraphs a step: n_subgraphs 32 cut to 4 (host sampling)
 GNN_STEPS = 3
 GNN_LIB_BLOCK = 4096  # query rows a torch.cdist + torch.topk block
+CELLS_VARIANTS = ("base", "opt-beam")  # (o): the pdasc search variants run
 GNN_OPT = dict(lr=1e-2, warmup_steps=0, total_steps=100, weight_decay=0.0,
-               schedule="constant")  # AdamWConfig of (n)'s steps
+               schedule="constant")  # AdamWConfig of (n)'s molecule steps
 
 
 class CheckFailed(RuntimeError):
@@ -604,11 +639,23 @@ def kernel_ms(fn, iters: int = 10, replays: int = 3) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_FP32
+def load_constants() -> None:
+    """The card's rates from ``repro_torch.launch.mesh``."""
+    global PEAK_FP32, PEAK_TF32, PEAK_GRAM, PEAK_BYTES
+    from repro_torch.launch import mesh
+
+    PEAK_FP32, PEAK_TF32 = mesh.PEAK_FLOPS_FP32, mesh.PEAK_FLOPS_TF32
+    PEAK_GRAM = max(PEAK_FP32, mesh.PEAK_FLOPS_3XTF32)
+    PEAK_BYTES = mesh.HBM_BW
+
+
+def bound(flops: float, nbytes: float, peak: float = None
           ) -> tuple[float, str]:
     """Least time in ms, and what bounds it: operations over ``peak`` (the
     operation rate of the fastest route the work can take at its
-    precision) or bytes over the HBM rate."""
+    precision; fp32 on the CUDA cores by default) or bytes over the HBM
+    rate."""
+    peak = PEAK_FP32 if peak is None else peak
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -1792,8 +1839,9 @@ def phase_online(main: dict, data: np.ndarray, workdir: str) -> dict:
     ``beam_vmap`` plan on the clean copy against the beam plan, then the
     CHURN write stream through ``EpochHandle.apply_writes`` (its swap
     policy off: this phase compacts by hand), the default plan with the
-    delta leg and the tombstone mask, a save / load of the churned index
-    (format v3) in ``workdir``, compaction of both scopes. Launch counts
+    delta leg and the tombstone mask, a save / load of a churned
+    ``SAVE_ROWS``-row index (format v3) in ``workdir``, compaction of both
+    scopes. Launch counts
     are read per window (``WINDOW_KERNELS``)."""
     import torch
     from repro_torch.baselines import exact_knn
@@ -1868,11 +1916,21 @@ def phase_online(main: dict, data: np.ndarray, workdir: str) -> dict:
     cpu_s = time.perf_counter() - t0
     del cpu
 
-    # save / load of the churned index: format v3 (the online tiers in its
-    # mutable meta), loaded on the card with the same tiers and results
+    # save / load of a churned index: format v3 (the online tiers in its
+    # mutable meta), loaded on the card with the same tiers and results;
+    # SAVE_ROWS rows under a CHURN / 16 stream (the 1M churned index spent
+    # 34-43 s in np.savez_compressed)
+    small = PDASCIndex.build(data[:SAVE_ROWS], gl=gl, shuffle=False,
+                             group_chunk=GROUP_CHUNK, device="cuda")
+    small.enable_mutations()
+    s_ups, s_rep, s_dead, s_c = churn_ops(
+        np.random.default_rng(2), data[:SAVE_ROWS], np.arange(SAVE_ROWS), 16)
+    apply_churn(EpochHandle(small, delta_fill=1.0, tombstone_ratio=1.0),
+                s_ups, s_rep, s_dead, s_c, np.random.default_rng(3))
+    sres = small.plan(Query(k=10))(Qc)
     path = os.path.join(workdir, "online_index")
     t0 = time.perf_counter()
-    idx.save(path)
+    small.save(path)
     save_s = time.perf_counter() - t0
     with open(path + ".json") as f:
         version = json.load(f)["version"]
@@ -1880,22 +1938,26 @@ def phase_online(main: dict, data: np.ndarray, workdir: str) -> dict:
     t0 = time.perf_counter()
     loaded = PDASCIndex.load(path, device="cuda")
     load_s = sync_s(t0)
-    n_d = idx.delta.size
+    n_d = small.delta.size
+    require(n_d > 0 and small.tombstones.bits.any(),
+            "the saved index has no online tier to round-trip")
     require(loaded.device.type == "cuda", f"loaded on {loaded.device}")
     require(loaded.delta.size == n_d
-            and np.array_equal(loaded.delta.ids[:n_d], idx.delta.ids[:n_d])
+            and np.array_equal(loaded.delta.ids[:n_d], small.delta.ids[:n_d])
             and np.array_equal(loaded.delta.active[:n_d],
-                               idx.delta.active[:n_d])
-            and np.array_equal(loaded.tombstones.bits, idx.tombstones.bits)
-            and loaded._seen_id_ceiling() == idx._seen_id_ceiling(),
+                               small.delta.active[:n_d])
+            and np.array_equal(loaded.tombstones.bits, small.tombstones.bits)
+            and loaded._seen_id_ceiling() == small._seen_id_ceiling(),
             "the loaded index's online tiers differ from the saved ones")
     lres = loaded.plan(Query(k=10))(Qc)
-    require(torch.equal(lres.ids, res.ids) and torch.equal(lres.dists, res.dists),
+    require(torch.equal(lres.ids, sres.ids)
+            and torch.equal(lres.dists, sres.dists),
             "the loaded index's search differs from the saved index's")
-    del loaded, lres
+    del loaded, lres, small, sres
     for ext in (".npz", ".json"):
         os.remove(path + ext)
-    log(f"[online] save (v3, mutable meta) {save_s:.3f} s, load on the card "
+    log(f"[online] save (v3, mutable meta) of a {SAVE_ROWS:,}-row index "
+        f"after {n_d} delta rows: {save_s:.3f} s, load on the card "
         f"{load_s:.3f} s: tiers and id ceiling equal, search bit-equal")
 
     start_phase()
@@ -4323,11 +4385,13 @@ def phase_lm() -> dict:
     return out
 
 
-def gnn_no_launch(window: str) -> None:
-    """``launched`` for a window of the EGNN itself: no launch allowed."""
+def no_launch(window: str) -> None:
+    """``launched`` for a window of library calls (the EGNN, the recsys
+    models): no launch of the port's kernels allowed."""
     counts = launched(window)
     require(not any(counts.values()),
-            f"{window}: the EGNN launched a kernel of the port: {counts}")
+            f"{window}: a library-call path launched a kernel of the port: "
+            f"{counts}")
 
 
 def gnn_molecule(base, rng) -> dict:
@@ -4377,7 +4441,7 @@ def gnn_molecule(base, rng) -> dict:
         params, opt, _ = adamw_update(g, opt, params, AdamWConfig(**GNN_OPT))
         losses.append(float(loss))
         step_ms.append(1e3 * sync_s(t0))
-    gnn_no_launch("gnn-molecule-train")
+    no_launch("gnn-molecule-train")
     require(np.isfinite(losses).all() and losses[-1] < losses[0],
             f"molecule loss did not fall: {losses}")
     log(f"[gnn] molecule ({B} x {n} atoms, d_feat {cfg.d_feat}): "
@@ -4506,41 +4570,49 @@ def gnn_pdasc(pts, edges) -> dict:
     return dict(seconds=secs, overlap=overlap)
 
 
-def gnn_batch(subs, n_max):
-    """Subgraphs as one disjoint graph on the card: ``sample_subgraph``'s
-    arrays (its own feature, coordinate and label gathers) concatenated,
-    each subgraph's edges offset by its ``n_max`` slots."""
+def gnn_stack(subs, args: dict) -> dict:
+    """``sample_subgraph``'s arrays (its own feature, coordinate and label
+    gathers) stacked into the egnn cell's ``[G, n_max, ...]`` batch on the
+    card, each leaf in its argument's shape and dtype (``args``)."""
     import torch
 
-    def cat(key):
-        return torch.from_numpy(np.concatenate([s[key] for s in subs])).cuda()
-
-    offs = torch.arange(len(subs), device="cuda")[:, None, None] * n_max
-    edges = (torch.from_numpy(np.stack([s["edges"] for s in subs])).cuda()
-             .long() + offs).transpose(0, 1).reshape(2, -1)
-    return dict(feats=cat("feats"), coords=cat("coords"),
-                labels=cat("labels"), edges=edges,
-                edge_mask=cat("edge_mask"), label_mask=cat("label_mask"))
+    out = {}
+    for key, sd in args.items():
+        t = torch.from_numpy(np.stack([s[key] for s in subs])).cuda().to(
+            sd.dtype)
+        require(tuple(t.shape) == (len(subs),) + tuple(sd.shape[1:]),
+                f"{key} of shape {tuple(t.shape)}, the cell's {sd.shape}")
+        out[key] = t
+    return out
 
 
 def gnn_train(base, graph, pts, rng) -> dict:
-    """(n), minibatch_lg training: sampled subgraphs, AdamW steps of
-    ``node_class_loss`` with remat; card == CPU on one subgraph; two
+    """(n), minibatch_lg training through the egnn cell
+    (``launch.steps``, its subgraph count cut to ``GNN_SUBGRAPHS``, on a
+    (1, 1) ``MeshShape``): sampled subgraphs, AdamW steps of the mean of
+    their ``node_class_loss`` with remat; card == CPU on one subgraph; two
     backward passes bit-compared with deterministic algorithms off and
     on."""
     import torch
     from repro_torch._tree import tree_leaves, tree_map
     from repro_torch.configs.base import GNN_SHAPES
     from repro_torch.configs.egnn import specialise
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import gnn
     from repro_torch.models import graph_sampler as gs
-    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
-                                   value_and_grad)
+    from repro_torch.optim import adamw_init, value_and_grad
 
-    dims = GNN_SHAPES["minibatch_lg"].dims
+    spec = GNN_SHAPES["minibatch_lg"]
+    dims = dict(spec.dims, n_subgraphs=GNN_SUBGRAPHS)
+    cell = steps.build_cell("egnn", dataclasses.replace(spec, dims=dims),
+                            MeshShape(("data", "model"), (1, 1)))
     N, fanouts, seeds_n = dims["n_nodes"], dims["fanouts"], dims["batch_nodes"]
     cfg = specialise(base, "minibatch_lg")
     n_max, e_max = gs.subgraph_budget(seeds_n, fanouts)
+    batch_args = cell.args[2]
+    require(batch_args["feats"].shape == (GNN_SUBGRAPHS, n_max, cfg.d_feat),
+            f"the cell's batch {batch_args['feats'].shape}")
     t0 = time.perf_counter()
     feats = rng.standard_normal((N, cfg.d_feat), dtype=np.float32)
     labels = feats[:, :cfg.n_classes].argmax(1)  # a planted function
@@ -4570,21 +4642,21 @@ def gnn_train(base, graph, pts, rng) -> dict:
         sample_s.append(secs)
         sizes.append([(s["n_nodes"], s["n_edges"]) for s in subs])
         t0 = time.perf_counter()
-        batch = gnn_batch(subs, n_max)
+        batch = gnn_stack(subs, batch_args)
         copy_s.append(sync_s(t0))
         t0 = time.perf_counter()
-        (loss, _), grads = value_and_grad(loss_of, params, batch)
-        params, opt, _ = adamw_update(grads, opt, params,
-                                      AdamWConfig(**GNN_OPT))
-        losses.append(float(loss))
+        params, opt, m = cell.step(params, opt, batch)
+        losses.append(float(m["loss"]))
         step_ms.append(1e3 * sync_s(t0))
-        del batch, grads
-    gnn_no_launch("gnn-train")
+        del batch, m
+    no_launch("gnn-train")
     peak = torch.cuda.max_memory_allocated() / 1e9
     require(np.isfinite(losses).all(), f"minibatch_lg losses {losses}")
-    log(f"[gnn] minibatch_lg training ({cfg.n_layers} layers, d_hidden "
-        f"{cfg.d_hidden}, d_feat {cfg.d_feat}, {cfg.n_classes} classes, "
-        f"remat): {GNN_STEPS} AdamW steps of {GNN_SUBGRAPHS} subgraphs "
+    log(f"[gnn] minibatch_lg training through the egnn cell "
+        f"({cfg.n_layers} layers, d_hidden {cfg.d_hidden}, d_feat "
+        f"{cfg.d_feat}, {cfg.n_classes} classes, remat; the mean of the "
+        f"subgraphs' losses): {GNN_STEPS} AdamW steps of {GNN_SUBGRAPHS} "
+        f"subgraphs "
         f"(n_max {n_max:,}, e_max {e_max:,}; real (nodes, edges) "
         f"{sizes[0]}): losses {[round(x, 4) for x in losses]}, "
         f"{[round(x, 1) for x in step_ms]} ms a step (host clock, "
@@ -4595,7 +4667,9 @@ def gnn_train(base, graph, pts, rng) -> dict:
         f"{peak:.2f} GB")
 
     subs, _ = sample(1)
-    one = gnn_batch(subs, n_max)
+    one = steps.subgraph_batch(gnn_stack(subs, {
+        k: dataclasses.replace(a, shape=(1,) + a.shape[1:])
+        for k, a in batch_args.items()}))
     with torch.no_grad():
         card = float(loss_of(params, one)[0])
         cpu = float(loss_of(tree_map(lambda t: t.cpu(), params),
@@ -4660,6 +4734,266 @@ def phase_gnn() -> dict:
     return out
 
 
+def cells_dryrun() -> dict:
+    """(o) 1: every cell on both production meshes through
+    ``launch.dryrun.run_cell`` on the meta device, in this process."""
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    n_ok = 0
+    for arch, shape in all_cells():
+        for mk in ("single", "multi"):
+            res = dryrun.run_cell(arch, shape, mk)
+            require(res["ok"], f"dry-run of {arch} x {shape} x {mk} failed")
+            r, m = res["roofline"], res["memory_analysis"]
+            log(f"[cells] {arch} x {shape} x {mk}: {res['n_chips']} ranks, "
+                f"flops/rank {res['cost_analysis']['flops']:.4g}, bytes/rank "
+                f"(unfused) {res['cost_analysis']['bytes accessed']:.4g}, "
+                f"args/rank {m['argument_size_in_bytes'] / 2**30:.4f} GiB, "
+                f"fits_hbm {m['fits_hbm']}, bound "
+                f"{r['step_time_lower_bound_s'] * 1e3:.4f} ms "
+                f"({r['bottleneck']})")
+            n_ok += 1
+    secs = time.perf_counter() - t0
+    log(f"[cells] dry-run {n_ok} ok, 0 failed in {secs:.1f} s")
+    return dict(n_ok=n_ok, seconds=secs)
+
+
+def one_mesh_bound(arch: str, shape: str, variant: str = "base") -> float:
+    """The dry-run's ``step_time_lower_bound_s`` of a cell on a (1, 1)
+    ``MeshShape``: the whole step on one card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+
+    res = dryrun.run_cell(arch, shape, "1x1", variant,
+                          mesh=MeshShape(("data", "model"), (1, 1)))
+    return res["roofline"]["step_time_lower_bound_s"]
+
+
+def cell_shapes(tree) -> dict:
+    """``{path: (shape, dtype)}`` of a tree of tensors or ShapeDtypes."""
+    from repro_torch._tree import tree_flatten_with_path
+
+    return {p: (tuple(t.shape), t.dtype)
+            for p, t in tree_flatten_with_path(tree)}
+
+
+def cells_pdasc(mesh) -> dict:
+    """(o) 2: the pdasc cells at full width on a world of one: build_1m,
+    then search_1m in each of ``CELLS_VARIANTS``."""
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.baselines import exact_knn
+    from repro_torch.configs import get_arch
+    from repro_torch.core import distances as dist_lib
+    from repro_torch.core import nsa
+    from repro_torch.core.reference_impl import check_index_invariants
+    from repro_torch.data import make_dataset
+    from repro_torch.launch import steps
+
+    cfg = get_arch("pdasc").config_fn()
+    t0 = time.perf_counter()
+    full = make_dataset("dense_embed", n=cfg.n + cfg.n_queries, seed=26)
+    data, Q = _cuda(full[:cfg.n]), _cuda(full[cfg.n:])
+    del full
+    log(f"[cells] pdasc data: dense_embed {cfg.n:,} x {cfg.d} and "
+        f"{cfg.n_queries:,} held-out queries on the card in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    build = steps.build_cell("pdasc", "build_1m", mesh)
+    require(cell_shapes((data,)) == cell_shapes(build.args),
+            "the build's data differs from the cell's argument")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start_phase()
+    t0 = time.perf_counter()
+    index = build.step(data)
+    build_s = sync_s(t0)
+    build_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = launched("cells-build")
+    local = tree_map(lambda a: a[0], index)
+    errs = check_index_invariants(local)
+    require(not errs, f"the cell's index breaks invariants: {errs[:3]}")
+    lb = one_mesh_bound("pdasc", "build_1m")
+    log(f"[cells] pdasc build_1m through the cell (gl {cfg.gl}, "
+        f"{cfg.method}, kb {cfg.kb}, {len(local.levels)} levels): "
+        f"{build_s:.3f} s (dry-run bound {lb:.4g} s), peak "
+        f"{build_gb:.2f} GB; invariants hold; pairwise "
+        f"{counts['pairwise']}, swap_deltas {counts['swap_deltas']} "
+        f"launches")
+    out = dict(build=dict(seconds=build_s, peak_gb=build_gb, bound_s=lb,
+                          launches=counts))
+    start_phase()
+    _, gt = exact_knn(Q, data, k=cfg.k, device=data.device)
+    launched("cells-truth")
+    gt = gt.cpu().numpy()
+    dist = dist_lib.get(cfg.distance)
+    for variant in CELLS_VARIANTS:
+        cell = steps.build_cell("pdasc", "search_1m", mesh, variant=variant)
+        require(cell_shapes(index) == cell_shapes(cell.args[0]),
+                f"the built index's leaves differ from the dry-run's "
+                f"analytic search arguments ({variant})")
+        torch.cuda.reset_peak_memory_stats()
+        start_phase()
+        res = cell.step(index, Q)
+        torch.cuda.synchronize()
+        counts = launched(f"cells-search-{variant}")
+        t0 = time.perf_counter()
+        again = cell.step(index, Q)
+        ms = 1e3 * sync_s(t0)
+        gb = torch.cuda.max_memory_allocated() / 1e9
+        require(torch.equal(again.ids, res.ids)
+                and torch.equal(again.dists, res.dists),
+                f"two calls of the {variant} search differ")
+        if variant == "opt-beam":
+            mc = (0,) + (8,) * (len(local.levels) - 1)
+            want = nsa.search_beam(local, Q, dist=dist, k=cfg.k,
+                                   r=cfg.radius, beam=32, max_children=mc)
+            what = "one-process beam search (beam 32, max_children 8)"
+        else:
+            want = nsa.search_dense(local, Q, dist=dist, k=cfg.k,
+                                    r=cfg.radius)
+            what = "one-process dense search"
+        gd = res.dists.cpu().numpy()
+        err = topk_agree(gd, res.ids.cpu().numpy(), want.dists.cpu().numpy(),
+                         want.ids.cpu().numpy(), gd, squared=True)
+        rec = recall(res.ids.cpu().numpy(), gt)
+        lb = one_mesh_bound("pdasc", "search_1m", variant)
+        out[variant] = dict(ms=ms, peak_gb=gb, bound_s=lb, recall=rec,
+                            max_abs_err=err, launches=counts)
+        log(f"[cells] pdasc search_1m {variant} through the cell "
+            f"({cfg.n_queries} queries, k {cfg.k}, radius {cfg.radius}): "
+            f"second call {ms:.3f} ms (dry-run bound {lb * 1e3:.4f} ms), "
+            f"peak {gb:.2f} GB; == the {what} on the same index up to "
+            f"near-ties (max abs err {err:.3g}); recall@{cfg.k} {rec:.4f} "
+            f"against exact_knn")
+        del res, again, want
+    del index, local, data, Q
+    torch.cuda.empty_cache()
+    return out
+
+
+def cells_recsys(mesh) -> dict:
+    """(o) 3: wide-deep's retrieval_cand, serve_p99 and train_batch cells
+    at full width, each through ``cell.step`` on tensors made from its
+    arguments."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batch
+    from repro_torch.data.pipeline import place
+    from repro_torch.kernels import ref
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as rec
+    from repro_torch.optim import adamw_init
+
+    arch = "wide-deep"
+    cfg = get_arch(arch).config_fn()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    params = rec.init_params(cfg, gen, device="cuda")
+    out = {}
+
+    cell = steps.build_cell(arch, "retrieval_cand", mesh)
+    require(cell_shapes(params) == cell_shapes(cell.args[0]),
+            "the params differ from the cell's arguments")
+    user = place(recsys_batch(1, 1, cfg, seed=26), "cuda")
+    user.pop("labels")
+    require(cell_shapes(user) == cell_shapes(cell.args[1]),
+            "the user batch differs from the cell's argument")
+    C = torch.randn(cell.args[2].shape, generator=gen, device="cuda")
+    k = 100
+    start_phase()
+    with torch.no_grad():
+        scores, ids = cell.step(params, user, C)
+    torch.cuda.synchronize()
+    counts = launched("cells-retrieval")
+    require(counts["knn"] == 1, f"the retrieval cell launched knn "
+            f"{counts['knn']} times")
+    with torch.no_grad():
+        u = rec.user_vector(params, user, cfg)
+        rd, ri = ref.knn_ref(u, C, k, "dot")
+        again = -(C[ids[0].long()] @ u[0])[None]
+        ms = time_ms(lambda: cell.step(params, user, C))
+    err = topk_agree(-scores.cpu(), ids.cpu(), rd.cpu(), ri.cpu(),
+                     again.cpu())
+    lb = one_mesh_bound(arch, "retrieval_cand")
+    out["retrieval"] = dict(ms=ms, bound_s=lb, max_abs_err=err)
+    log(f"[cells] {arch} retrieval_cand through the cell ([1, "
+        f"{C.shape[0]:,}, {C.shape[1]}], k {k}): {ms:.4f} ms a step (CUDA "
+        f"events; dry-run bound {lb * 1e3:.4f} ms); top-{k} == knn_ref up "
+        f"to near-ties (max abs err {err:.3g})")
+    del C, rd, ri, again
+
+    cell = steps.build_cell(arch, "serve_p99", mesh)
+    batch = place(recsys_batch(0, cell.args[1]["sparse"].shape[0], cfg,
+                               seed=26), "cuda")
+    batch.pop("labels")
+    require(cell_shapes(batch) == cell_shapes(cell.args[1]),
+            "the serve batch differs from the cell's argument")
+    start_phase()
+    with torch.no_grad():
+        probs = cell.step(params, batch)
+    torch.cuda.synchronize()
+    no_launch("cells-serve")
+    require(tuple(probs.shape) == (batch["sparse"].shape[0],)
+            and bool(((probs >= 0) & (probs <= 1)).all()),
+            f"serve probabilities of shape {tuple(probs.shape)}")
+    with torch.no_grad():
+        ms = time_ms(lambda: cell.step(params, batch))
+    lb = one_mesh_bound(arch, "serve_p99")
+    out["serve"] = dict(ms=ms, bound_s=lb)
+    log(f"[cells] {arch} serve_p99 through the cell (batch "
+        f"{probs.shape[0]}): {ms:.4f} ms a step (CUDA events; dry-run bound "
+        f"{lb * 1e3:.4f} ms); probabilities in [0, 1]")
+
+    cell = steps.build_cell(arch, "train_batch", mesh)
+    batch = place(recsys_batch(0, cell.args[2]["sparse"].shape[0], cfg,
+                               seed=27), "cuda")
+    require(cell_shapes(batch) == cell_shapes(cell.args[2]),
+            "the train batch differs from the cell's argument")
+    opt = adamw_init(params)
+    require(cell_shapes(opt) == cell_shapes(cell.args[1]),
+            "the optimizer state differs from the cell's argument")
+    torch.cuda.reset_peak_memory_stats()
+    start_phase()
+    step_ms, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params, opt, m = cell.step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * sync_s(t0))
+    no_launch("cells-train")
+    require(np.isfinite(losses).all(), f"train losses {losses}")
+    lb = one_mesh_bound(arch, "train_batch")
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    out["train"] = dict(step_ms=step_ms, loss=losses, bound_s=lb, peak_gb=gb)
+    log(f"[cells] {arch} train_batch through the cell (batch "
+        f"{batch['sparse'].shape[0]:,}): losses {losses}, {step_ms[0]:.1f} "
+        f"ms the first step, {step_ms[1]:.1f} ms the second (host clock, "
+        f"synchronised; dry-run bound {lb * 1e3:.4f} ms), peak {gb:.2f} GB")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cells() -> dict:
+    """(o) The cells and the dry-run (see the module docstring)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    out = dict(dryrun=cells_dryrun())
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        out["pdasc"] = cells_pdasc(mesh)
+        out["recsys"] = cells_recsys(mesh)
+    finally:
+        dist.destroy_process_group()
+    log(f"[cells] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -4673,6 +5007,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    load_constants()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -4719,6 +5054,7 @@ def main() -> int:
         recsys = phase_recsys(work)
     phase_lm()
     gnn = phase_gnn()
+    phase_cells()
     knn_row = next(r for r in rows if r["name"] == "knn")
     knn_row["retrieval"] = recsys["row"]
     knn_row["knn_graph"] = gnn["row"]

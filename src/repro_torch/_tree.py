@@ -12,7 +12,10 @@ def _is_namedtuple(x) -> bool:
 def _children(tree):
     """``(keys, values, rebuild)`` of a container node, or None for a
     leaf. Keys follow ``jax.tree_util``'s paths: sorted dict keys,
-    sequence positions, NamedTuple field names."""
+    sequence positions, NamedTuple field names. A type that sets
+    ``_tree_leaf`` (``_spec.PSpec``) is a leaf."""
+    if getattr(type(tree), "_tree_leaf", False):
+        return None
     if isinstance(tree, dict):
         keys = sorted(tree)
         return keys, [tree[k] for k in keys], lambda vs: dict(zip(keys, vs))

@@ -20,6 +20,10 @@ SPMD over processes, one rank each:
 * **storage** — the navigation tier replicates and the quantised payload
   shards by leaf-row range (:func:`shard_payload`,
   :func:`scan_quantized_sharded`, :func:`payload_placement`).
+* **one process** — :func:`build_stacked` and :func:`search_stacked` run
+  every shard in turn on one device, over ``repro``'s stacked index (a
+  leading shard axis on every leaf): the global step of the PDASC cells
+  (``launch/steps.py``), equal to what the ranks build and return.
 
 Merges (the collective hot path; ``[B, k]`` pairs per rank):
 
@@ -311,33 +315,108 @@ def search_sharded(
     ids lift as ``shard * per_shard_n + local`` with ``per_shard_n`` the
     sub-index's leaf slot count, as in ``repro``. ``n_candidates`` is summed
     over the database axes."""
-    dist = dist_lib.get(dist)
-    dev = local_index.leaf_ids.device
-    Q = torch.as_tensor(Q, dtype=torch.float32).to(dev)
-    if slot_valid is not None:
-        slot_valid = torch.as_tensor(slot_valid, dtype=torch.bool).to(dev)
-    if mode == "dense":
-        res = nsa.search_dense(
-            local_index, Q, dist=dist, k=k, r=r,
-            leaf_radius_filter=leaf_radius_filter, with_stats=with_stats,
-            kernel=kernel, slot_valid=slot_valid)
-    else:
-        if max_children is None:
-            raise ValueError(
-                "per-shard 'beam' needs max_children (the per-level child "
-                "bound over every shard: max_children_sharded)")
-        res = nsa.search_beam(
-            local_index, Q, dist=dist, k=k, r=r, beam=beam,
-            max_children=tuple(max_children),
-            leaf_radius_filter=leaf_radius_filter, kernel=kernel,
-            slot_valid=slot_valid)
-    shard = shard_index(mesh, db_axes)
-    per_shard_n = local_index.leaf_ids.shape[0]
-    gids = torch.where(res.ids >= 0, res.ids + shard * per_shard_n, -1
-                       ).to(torch.int32)
+    res = _search_local(local_index, Q, dist=dist, k=k, r=r, mode=mode,
+                        beam=beam, max_children=max_children,
+                        leaf_radius_filter=leaf_radius_filter,
+                        with_stats=with_stats, kernel=kernel,
+                        slot_valid=slot_valid)
+    gids = _lift(res.ids, shard_index(mesh, db_axes),
+                 local_index.leaf_ids.shape[0])
     d_m, i_m = topk_merge(res.dists, gids, mesh, tuple(db_axes), k,
                           method=merge)
     nc = _psum(res.n_candidates, mesh, tuple(db_axes))
+    return nsa.SearchResult(dists=d_m, ids=i_m, n_candidates=nc)
+
+
+def _search_local(local_index, Q, *, dist, k, r, mode, beam, max_children,
+                  leaf_radius_filter, with_stats, kernel, slot_valid=None
+                  ) -> nsa.SearchResult:
+    """One shard's search, local leaf ids."""
+    dist = dist_lib.get(dist)
+    dev = local_index.leaf_ids.device
+    Q = torch.as_tensor(Q).to(dev, torch.float32)
+    if slot_valid is not None:
+        slot_valid = torch.as_tensor(slot_valid, dtype=torch.bool).to(dev)
+    if mode == "dense":
+        return nsa.search_dense(
+            local_index, Q, dist=dist, k=k, r=r,
+            leaf_radius_filter=leaf_radius_filter, with_stats=with_stats,
+            kernel=kernel, slot_valid=slot_valid)
+    if max_children is None:
+        raise ValueError(
+            "per-shard 'beam' needs max_children (the per-level child "
+            "bound over every shard: max_children_sharded)")
+    return nsa.search_beam(
+        local_index, Q, dist=dist, k=k, r=r, beam=beam,
+        max_children=tuple(max_children),
+        leaf_radius_filter=leaf_radius_filter, kernel=kernel,
+        slot_valid=slot_valid)
+
+
+def _lift(ids: Tensor, shard: int, per_shard_n: int) -> Tensor:
+    """Local leaf ids as global rows (``-1`` kept)."""
+    return torch.where(ids >= 0, ids + shard * per_shard_n, -1
+                       ).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Every shard in one process (a stacked index)
+# ---------------------------------------------------------------------------
+
+
+def shard_of(stacked, p: int):
+    """Shard ``p`` of a stacked index (leaves with a leading shard axis)."""
+    return type(stacked)(
+        levels=tuple(type(lv)(*(a[p] for a in lv)) for lv in stacked.levels),
+        leaf_ids=stacked.leaf_ids[p])
+
+
+def build_stacked(data: Tensor, n_shards: int, *, gl: int,
+                  distance="euclidean", method: str = "pam",
+                  max_swaps: int = 64, seed: int = 0, row_chunk: int = 512,
+                  group_chunk: int = 8, swap_tol: float = 1e-3, kb: int = 0
+                  ) -> msa.PDASCIndexData:
+    """What :func:`build_sharded` builds on each of ``n_shards`` ranks, in
+    one process on ``data``'s device: every leaf stacked on a leading shard
+    axis, as ``repro``'s ``shard_map`` returns it."""
+    n = data.shape[0]
+    if n % n_shards:
+        raise ValueError(f"n={n} not divisible by shard count {n_shards}")
+    per = n // n_shards
+    parts = [msa.build_index_arrays(
+        data[p * per:(p + 1) * per], gl=gl, distance=distance,
+        method=method, max_swaps=max_swaps,
+        generator=shard_generator(seed, p), row_chunk=row_chunk,
+        group_chunk=group_chunk, swap_tol=swap_tol, kb=kb,
+        device=data.device)[0] for p in range(n_shards)]
+    return type(parts[0])(
+        levels=tuple(type(lv)(*(torch.stack(f) for f in zip(*same)))
+                     for lv, same in zip(parts[0].levels,
+                                         zip(*(q.levels for q in parts)))),
+        leaf_ids=torch.stack([q.leaf_ids for q in parts]))
+
+
+def search_stacked(index: msa.PDASCIndexData, Q, *, dist, k: int = 10, r,
+                   mode: str = "dense", beam=32,
+                   max_children: Optional[tuple] = None,
+                   leaf_radius_filter: bool = False, with_stats: bool = True,
+                   kernel: Optional[kops.KernelConfig] = None
+                   ) -> nsa.SearchResult:
+    """What :func:`search_sharded` returns on every rank, in one process:
+    each shard of a stacked index searched in turn, then one selection of
+    the k smallest (distance, global id) pairs over all of them (the
+    merges' key, so the result is theirs)."""
+    dists, gids, nc = [], [], 0
+    for p in range(index.leaf_ids.shape[0]):
+        local = shard_of(index, p)
+        res = _search_local(local, Q, dist=dist, k=k, r=r, mode=mode,
+                            beam=beam, max_children=max_children,
+                            leaf_radius_filter=leaf_radius_filter,
+                            with_stats=with_stats, kernel=kernel)
+        dists.append(res.dists)
+        gids.append(_lift(res.ids, p, local.leaf_ids.shape[0]))
+        nc = nc + res.n_candidates
+    d_m, i_m = _select(torch.cat(dists, -1), torch.cat(gids, -1), k)
     return nsa.SearchResult(dists=d_m, ids=i_m, n_candidates=nc)
 
 

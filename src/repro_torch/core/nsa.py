@@ -45,6 +45,9 @@ from repro_torch.kernels import ref as kref
 Tensor = torch.Tensor
 
 _VMAP_QUERY_CHUNK = 256  # queries a search_beam_vmap gather holds at once
+# entries of a search_dense level matrix a query chunk holds at once (1 GiB
+# of fp32; its sort and mask take about 4x that)
+DENSE_CHUNK_ENTRIES = 1 << 28
 
 
 class SearchResult(NamedTuple):
@@ -127,14 +130,21 @@ def search_dense(index: PDASCIndexData, Q: Tensor, *,
                  leaf_radius_filter: bool = False, with_stats: bool = True,
                  kernel: Optional[kops.KernelConfig] = None,
                  slot_valid: Optional[Tensor] = None) -> SearchResult:
-    """Batched faithful NSA. ``Q``: ``[B, d]`` (or ``[d]``)."""
+    """Batched faithful NSA. ``Q``: ``[B, d]`` (or ``[d]``). The queries
+    run in chunks that keep each level's ``[chunk, n_l]`` matrices within
+    ``DENSE_CHUNK_ENTRIES`` (rows are independent, so the result is the
+    whole batch's)."""
     radii = _per_level_radii(r, len(index.levels))
     squeeze = Q.dim() == 1
-    res = _search_dense_batch(
-        index, dist, Q[None] if squeeze else Q, k=k, radii=radii,
+    Q = Q[None] if squeeze else Q
+    step = max(1, DENSE_CHUNK_ENTRIES // max(1, index.levels[0].points.shape[0]))
+    parts = [_search_dense_batch(
+        index, dist, Q[i:i + step], k=k, radii=radii,
         leaf_radius_filter=leaf_radius_filter, kernel=kernel or kops.DEFAULT,
-        with_stats=with_stats, slot_valid=slot_valid,
-    )
+        with_stats=with_stats, slot_valid=slot_valid)
+        for i in range(0, max(1, Q.shape[0]), step)]
+    res = parts[0] if len(parts) == 1 else SearchResult(
+        *(torch.cat(f) for f in zip(*parts)))
     return _squeezed(res) if squeeze else res
 
 

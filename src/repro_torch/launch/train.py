@@ -23,7 +23,7 @@ stays off (PyTorch's default: matmul precision "highest").
 
 On CUDA the last lines print ms a step and the peak device memory.
 
-Not here yet: a ``--mesh`` beyond ``1x1`` (ROADMAP item 9d); GNN archs are
+Not here yet: a ``--mesh`` beyond ``1x1`` (ROADMAP item 9d-2); GNN archs are
 driven from the examples, as in ``repro``.
 """
 

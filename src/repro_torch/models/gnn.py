@@ -28,7 +28,8 @@ Two regimes, as ``repro``'s:
 Params are a dict under ``repro``'s names: ``embed_w``/``embed_b``,
 ``head_w``/``head_b`` and the layer MLPs stacked ``[n_layers, ...]`` under
 ``layers``. Every product and scatter is a library call: ``repro`` has no
-Pallas kernel here. The GSPMD ``param_specs`` is ROADMAP item 9d's.
+Pallas kernel here. ``param_specs`` replicates every parameter, as
+``repro``'s does.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
+from repro_torch._spec import PSpec, ShapeDtype
 from repro_torch._tree import tree_leaves, tree_map
-from repro_torch.models.transformer import ShapeDtype, _remat
+from repro_torch.models.transformer import _remat
 
 Tensor = torch.Tensor
 
@@ -93,6 +95,12 @@ def param_shapes(cfg: EGNNConfig) -> dict:
         head_w=f32(h, head_out),
         head_b=f32(head_out),
     )
+
+
+def param_specs(cfg: EGNNConfig, batch_axes=("data",), model_axis="model"
+                ) -> dict:
+    """Every parameter replicated (``repro``'s: the EGNN has ~100K)."""
+    return tree_map(lambda _: PSpec(), param_shapes(cfg))
 
 
 def init_params(cfg: EGNNConfig, generator: torch.Generator,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch._spec import PSpec
 from repro_torch.kernels import ops as kops
 
 Tensor = torch.Tensor
@@ -168,6 +169,16 @@ def param_shapes(cfg: RecsysConfig) -> dict:
     penult = (cfg.mlp[-1] if cfg.mlp else mlp_in)
     p["retrieval_proj"] = (penult, cfg.retrieval_dim)
     return p
+
+
+def param_specs(cfg: RecsysConfig, batch_axes=("data",), model_axis="model"
+                ) -> dict:
+    """:class:`~repro_torch._spec.PSpec` of every parameter, as
+    ``repro``'s: the tables (and the ``wide`` / ``lin`` vectors) split by
+    rows over ``model_axis``, the rest replicated."""
+    return {k: PSpec(model_axis, None) if k in ("tables", "wide", "lin")
+            else PSpec(*([None] * len(s)))
+            for k, s in param_shapes(cfg).items()}
 
 
 _BIASES = tuple(f"_b{i}" for i in range(8))

@@ -29,10 +29,11 @@ router and the loss accumulate in fp32. ``repro`` computes all of this in
 call; attention keeps ``repro``'s chunked fp32 online softmax rather than
 ``scaled_dot_product_attention``.
 
-Not here (ROADMAP item 9d, with the mesh and the dry-run): the GSPMD
-``param_specs`` / ``cache_specs``, expert parallelism over a mesh and the
-2D expert-parallel decode. A non-``None`` ``mesh`` raises
-``NotImplementedError``. ``scan_layers`` and ``unroll_inner`` are
+``param_specs`` / ``cache_specs`` give ``repro``'s shardings as plain
+:class:`~repro_torch._spec.PSpec` data (``launch/steps.py`` records them).
+Not here (ROADMAP item 9d-2, the mesh paths): running sharded, expert
+parallelism over a mesh and the 2D expert-parallel decode. A non-``None``
+``mesh`` raises ``NotImplementedError``. ``scan_layers`` and ``unroll_inner`` are
 ``repro``'s XLA probe knobs: kept as fields so the configs compare equal,
 both values run the same layer loop.
 """
@@ -50,12 +51,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch._spec import PSpec, ShapeDtype  # noqa: F401  (ShapeDtype: re-exported)
 from repro_torch._tree import tree_map
 from repro_torch.kernels.ref import topk_largest
 
 Tensor = torch.Tensor
 
-_MESH_ITEM = "ROADMAP item 9d"
+_MESH_ITEM = "ROADMAP item 9d-2"
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +135,7 @@ class TransformerConfig:
 @dataclasses.dataclass(frozen=True)
 class ShardingConfig:
     """Logical-axis assignment onto a mesh (plain data: the port runs on
-    one device until ROADMAP item 9d)."""
+    one device until ROADMAP item 9d-2)."""
 
     batch_axes: tuple = ("data",)
     model_axis: str = "model"
@@ -149,15 +151,6 @@ class ShardingConfig:
     @property
     def m(self):
         return self.model_axis
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeDtype:
-    """The shape and dtype of a tensor not yet allocated
-    (``jax.ShapeDtypeStruct``'s counterpart)."""
-
-    shape: tuple
-    dtype: Any
 
 
 def _no_mesh(mesh) -> None:
@@ -211,6 +204,36 @@ def param_shapes(cfg: TransformerConfig) -> dict:
             w_down=f(L, cfg.d_ff, d),
         )
     return dict(embed=f(V, d), layers=layer, final_norm=f(d), lm_head=f(d, V))
+
+
+def param_specs(cfg: TransformerConfig, sh: ShardingConfig) -> dict:
+    """:class:`~repro_torch._spec.PSpec` of every parameter, as
+    ``repro``'s: TP over ``model``, FSDP over the batch axes. The leading
+    layer dim is never split."""
+    b, m = sh.b, sh.m
+    layer = dict(
+        ln1=PSpec(None, None),
+        ln2=PSpec(None, None),
+        wq=PSpec(None, b, m),
+        wk=PSpec(None, b, m),
+        wv=PSpec(None, b, m),
+        wo=PSpec(None, m, b),
+    )
+    if cfg.moe:
+        layer.update(
+            router=PSpec(None, b, None),
+            we_gate=PSpec(None, m, b, None),
+            we_up=PSpec(None, m, b, None),
+            we_down=PSpec(None, m, None, b),
+        )
+        if cfg.moe.n_shared:
+            layer.update(ws_gate=PSpec(None, b, m), ws_up=PSpec(None, b, m),
+                         ws_down=PSpec(None, m, b))
+    else:
+        layer.update(w_gate=PSpec(None, b, m), w_up=PSpec(None, b, m),
+                     w_down=PSpec(None, m, b))
+    return dict(embed=PSpec(m, b), layers=layer, final_norm=PSpec(None),
+                lm_head=PSpec(b, m))
 
 
 _NORMS = ("ln1", "ln2", "final_norm")
@@ -370,7 +393,7 @@ def _moe_local(x_flat, router_w, we_gate, we_up, we_down, *, moe: MoEConfig,
     """Route -> sort-dispatch into ``[E, C, d]`` -> expert ffn -> combine.
 
     x_flat: [T, d] tokens; we_*: [E, ...] every expert (``ep`` = 1: the
-    all-to-all over ``model_axis`` is ROADMAP item 9d). A token's slot past
+    all-to-all over ``model_axis`` is ROADMAP item 9d-2). A token's slot past
     its expert's capacity C goes to a dump row that is sliced away, so
     its expert output is 0. Returns (y [T, d], aux)."""
     if ep != 1:
@@ -582,6 +605,14 @@ def cache_shapes(cfg: TransformerConfig, batch: int, max_seq: int) -> dict:
     """KV cache :class:`ShapeDtype`: k/v [L, B, S, KV, hd] in ``cfg.dtype``."""
     s = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     return dict(k=ShapeDtype(s, cfg.dtype), v=ShapeDtype(s, cfg.dtype))
+
+
+def cache_specs(sh: ShardingConfig) -> dict:
+    """The KV cache's :class:`~repro_torch._spec.PSpec`: batch over
+    ``sh.cache_batch_axes``, sequence over ``sh.cache_seq_axes``."""
+    spec = PSpec(None, sh.cache_batch_axes or None,
+                 sh.cache_seq_axes or None, None, None)
+    return dict(k=spec, v=spec)
 
 
 def decode_step(params, cache, tokens, pos, cfg: TransformerConfig,

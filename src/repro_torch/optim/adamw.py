@@ -18,6 +18,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch._spec import PSpec, ShapeDtype
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -53,6 +54,22 @@ def adamw_init(params) -> OptState:
 
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+
+
+def opt_state_shapes(param_shapes) -> OptState:
+    """The state's :class:`~repro_torch._spec.ShapeDtype` tree (nothing
+    allocated): an int32 step and fp32 moments shaped as the params."""
+    z = tree_map(lambda p: ShapeDtype(tuple(p.shape), torch.float32),
+                 param_shapes)
+    return OptState(step=ShapeDtype((), torch.int32), mu=z,
+                    nu=tree_map(lambda s: s, z))
+
+
+def opt_state_specs(param_specs) -> OptState:
+    """The state's specs: the step replicated, the moments as the
+    params."""
+    return OptState(step=PSpec(), mu=param_specs,
+                    nu=tree_map(lambda s: s, param_specs))
 
 
 def global_norm(tree) -> Tensor:

@@ -161,6 +161,21 @@ def test_full_width_beam_equals_dense(distance):
     assert torch.equal(single.ids, beam.ids[0])
 
 
+def test_dense_search_in_query_chunks_equals_one_batch(monkeypatch):
+    """``search_dense`` bounds its level matrices by running the queries in
+    chunks; the chunks' results are the whole batch's, bit for bit."""
+    data = _data("euclidean", 400, seed=5)
+    idx = PDASCIndex.build(data, gl=32, radius_quantile=0.4, device="cpu")
+    Q = torch.from_numpy(data[:23] + 0.01)
+    whole = nsa.search_dense(idx.data, Q, dist=idx.distance, k=7,
+                             r=idx.default_radius)
+    monkeypatch.setattr(nsa, "DENSE_CHUNK_ENTRIES", 5 * 400)  # 5 queries
+    chunked = nsa.search_dense(idx.data, Q, dist=idx.distance, k=7,
+                               r=idx.default_radius)
+    for a, b in zip(chunked, whole):
+        assert torch.equal(a, b)
+
+
 def test_exact_knn_matches_repro():
     rng = np.random.default_rng(4)
     Q, DB = rng.normal(size=(12, 6)), rng.normal(size=(700, 6))
